@@ -1,5 +1,6 @@
-"""Decoder registry of the port (channel models come with a later slice)."""
+"""Decoder registry, channel models, trial steps and the waterfall sweep."""
 
-from .awgn import resolve_impl
+from .awgn import ChannelStats, noise_sigma, resolve_impl
+from .waterfall import SnrPoint, waterfall
 
-__all__ = ["resolve_impl"]
+__all__ = ["ChannelStats", "SnrPoint", "noise_sigma", "resolve_impl", "waterfall"]

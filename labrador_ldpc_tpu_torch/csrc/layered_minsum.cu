@@ -43,19 +43,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "qc_addend.cuh"
+
 namespace {
 
-constexpr int kTableCols = 9;  // row, col, kind, shift, theta, phi0..phi3
-constexpr int kKindRot = 0;    // perm(i) = (i + shift) mod M             (HI | shift)
-                               // kind 1: perm(i) = q*((theta + j) mod 4)
-                               //         + (phi[j] + i) mod q, q = M/4, j = i/q  (HP | K)
-
-__device__ __forceinline__ int perm_index(const int* __restrict__ a, int i, int M) {
-  if (a[2] == kKindRot) return (i + a[3]) & (M - 1);
-  const int q = M >> 2;
-  const int j = i / q;
-  return ((a[4] + j) & 3) * q + ((a[5 + j] + i) & (q - 1));
-}
+using qc::kTableCols;
+using qc::perm_index;
 
 __global__ void layered_minsum_f32_kernel(
     const float* __restrict__ llrs,        // (B, n)

@@ -2,8 +2,9 @@
 
 Each `csrc/*.cu` file is compiled on its own into a shared library with a
 plain C interface, at first use, into `labrador_ldpc_tpu_torch/_build/`
-(listed in .gitignore). The library's name carries a hash of the source and
-the flags, so an edited source is rebuilt and never mixed with a stale one.
+(listed in .gitignore). The library's name carries a hash of the source, of
+every header in `csrc/` (`*.cuh`, which the sources share) and of the flags,
+so an edited source or header is rebuilt and never mixed with a stale one.
 Nothing here runs when the module is imported.
 """
 
@@ -54,7 +55,11 @@ def _nvcc() -> str:
 
 def _target(source: str) -> tuple[Path, Path]:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     so = BUILD_DIR / f"{src.stem}-{digest}.so"
     return so, so.with_suffix(".log")
 

@@ -1,8 +1,10 @@
-"""Min-sum result type and the `decode_ms` entry point.
+"""Min-sum result type, the gather tables and the `decode_ms` entry point.
 
 PyTorch counterpart of part of `labrador_ldpc_tpu/ops/minsum.py`: the
-`MSResult` fields and `decode_ms`. The reference-order decoder
-(`make_ms_decoder`, gather-based over `decoder_tables`) comes with a later
+`MSResult` fields, `_device_tables` (the gather tables over
+`decoder_tables`, which the gather bit-flip and erasure decoders of
+`ops/bitflip.py` use) and `decode_ms`. The reference-order decoder
+(`make_ms_decoder`, gather-based over the same tables) comes with a later
 slice (ROADMAP Queue A7).
 """
 
@@ -13,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..codes.expand import decoder_tables
 from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
 
@@ -23,6 +26,24 @@ class MSResult(NamedTuple):
     success: torch.Tensor  # (B,) bool — all parity checks satisfied
     iterations: torch.Tensor  # (B,) int32 — 0-based iteration of convergence, or maxiters
     bits: torch.Tensor  # (B, n+p) uint8 — hard-decoded marginals (data in first k)
+
+
+@lru_cache(maxsize=None)
+def _device_tables(code: LDPCCode, device: torch.device) -> dict:
+    """`decoder_tables(code)` as tensors on `device`.
+
+    Pad slots of `check_nbrs_flat` hold V and those of `var_check_idx` hold
+    C: gathers read a sentinel row appended to the (V, B) or (C, B) plane,
+    and the masks zero what they read there.
+    """
+    t = decoder_tables(code)
+    return dict(
+        check_nbrs_flat=torch.as_tensor(t.check_nbrs.reshape(-1), dtype=torch.int64, device=device),
+        check_mask=torch.as_tensor(t.check_mask[:, :, None], dtype=torch.int32, device=device),
+        var_check_idx=torch.as_tensor(t.var_check_idx, dtype=torch.int64, device=device),
+        var_mask=torch.as_tensor(t.var_mask, dtype=torch.int32, device=device),
+        meta=t,
+    )
 
 
 @lru_cache(maxsize=None)

@@ -10,6 +10,8 @@ import torch
 import labrador_ldpc_tpu as J
 
 import labrador_ldpc_tpu_torch as T
+from labrador_ldpc_tpu_torch.channel.awgn import make_trial_step
+from labrador_ldpc_tpu_torch.channel.hard import make_bf_trial_step, make_ms_hard_trial_step
 from labrador_ldpc_tpu_torch.ops import cuda_layered
 from test_torch_layered import one_torch_thread  # noqa: F401  (autouse fixture)
 
@@ -38,6 +40,26 @@ def test_tm8192_serving_pipeline_matches_jax():
     assert res.success.all()
     np.testing.assert_array_equal(T.pack_bits(res.bits[:, : code.k], device="cpu").numpy(), data)
     assert cuda_layered.launches == 0  # the CPU path never launches the kernel
+
+
+def test_tm8192_decode_bf_pipeline_matches_jax():
+    """The hard-decision slice: bytes -> encode -> 3 flips in byte 0 ->
+    unpack -> decode_bf (the protocol of benches/decode.rs:22-37), B=16."""
+    code = T.LDPCCode.TM8192
+    data = np.random.default_rng(1).integers(0, 256, (16, code.k // 8), dtype=np.uint8)
+    cw = T.encode(code, data, device="cpu")
+    cw[:, 0] ^= FLIPS
+    res = T.decode_bf(code, T.unpack_bits(cw, device="cpu"), maxiters=50, device="cpu")
+
+    jcw = np.array(J.encode(J.LDPCCode.TM8192, jnp.asarray(data)))
+    jcw[:, 0] ^= FLIPS
+    jres = J.decode_bf(J.LDPCCode.TM8192, J.unpack_bits(jnp.asarray(jcw)), maxiters=50)
+
+    np.testing.assert_array_equal(res.bits.numpy(), np.asarray(jres.bits))
+    np.testing.assert_array_equal(res.success.numpy(), np.asarray(jres.success))
+    np.testing.assert_array_equal(res.iterations.numpy(), np.asarray(jres.iterations))
+    assert res.success.all()
+    np.testing.assert_array_equal(T.pack_bits(res.bits[:, : code.k], device="cpu").numpy(), data)
 
 
 def test_auto_resolves_per_device():
@@ -74,6 +96,17 @@ ENTRY_POINTS = {
     "make_ms_decoder_layered": lambda: T.make_ms_decoder_layered("TC128"),
     "make_ms_decoder_cuda_layered": lambda: T.make_ms_decoder_cuda_layered("TC128"),
     "make_encoder": lambda: T.make_encoder("TC128"),
+    "decode_bf": lambda: T.decode_bf("TC128", np.zeros((1, 128), np.uint8)),
+    "decode_erasures_bits": lambda: T.decode_erasures_bits("TM1280", np.zeros((1, 1408), np.uint8)),
+    "decode_erasures_mask": lambda: T.decode_erasures_mask(
+        "TM1280", np.zeros((1, 1408), np.uint8), np.zeros((1, 1408), bool)),
+    "make_bf_decoder": lambda: T.make_bf_decoder("TC128"),
+    "make_bf_decoder_qc": lambda: T.make_bf_decoder_qc("TC128"),
+    "make_bf_decoder_cuda": lambda: T.make_bf_decoder_cuda("TC128"),
+    "waterfall": lambda: T.waterfall("TC128", [0.01], decoder="bf", noise_model="bsc"),
+    "make_trial_step": lambda: make_trial_step("TC128", 8),
+    "make_bf_trial_step": lambda: make_bf_trial_step("TC128", 8),
+    "make_ms_hard_trial_step": lambda: make_ms_hard_trial_step("TC128", 8),
 }
 
 
