@@ -7,36 +7,49 @@ repository checkout: it imports labrador_ldpc_tpu_torch and nothing of the
 JAX package, and reads the CCSDS golden parity from tests/golden_vectors.py
 (plain data). Every phase is fatal on failure; nothing is caught.
 
-  1. build every CUDA source of the port with nvcc, all at once;
+  1. build every CUDA source of the port with nvcc, all at once (three);
   2. print the card's name and power limit (nvidia-smi);
   3. encoder on the card against the golden CCSDS parity of all nine codes;
-  4. the layered min-sum kernel against its plain PyTorch version on the
-     card, all nine codes, noisy LLRs where some frames fail (B=256,
+  4. the layered min-sum kernel (float32) against its plain PyTorch version
+     on the card, all nine codes, noisy LLRs where some frames fail (B=256,
      maxiters=20), plus alpha=0.8 and maxiters 0/1 cases: identical bits,
      success and iterations;
   5. the main path: 8 serving batches of TM8192, B=16384, 3 flipped bits in
      byte 0, maxiters=50, through encode -> hard_to_llrs -> decode_ms
-     (impl="auto"), every frame's data verified; launch counts are reset
-     just before and read just after;
+     (impl="auto"), every frame's data verified; then one int8 serving batch
+     (the same LLRs through quantize_llrs) through decode_ms(impl="auto"),
+     the int8 form of the layered kernel; launch counts are reset just
+     before and read just after each;
   6. TM8192 at 1.0 dB, B=256, maxiters=50 (deep iterations and failures):
      kernel against plain version, bit for bit;
-  7. times (CUDA events) of each kernel and of its plain version at its
-     path's shapes, and each kernel's bound: the layered kernel as above,
-     the bit-flip kernel at TM8192, B=16384, maxiters=50 on the 3-flip
-     batch of phase 5 (the decode_bf protocol, benches/decode.rs:22-37), on
-     a BSC(p=0.006) batch where failing frames run deep, and at TM1536 on
-     3 flips;
+  7. times (CUDA events) of each kernel form and of its plain version at
+     its path's shapes, and each one's bound: the layered kernel (float32,
+     int8, int16) and the flooding kernel (float32, int8, int16) at TM8192,
+     B=16384, maxiters=50 on the 3-flip batch of phase 5, the flooding
+     float32 form also at Eb/N0 1.1 dB, every form at TM1536, the
+     bit-flip kernel at TM8192, B=16384, maxiters=50 on the 3-flip batch
+     (the decode_bf protocol, benches/decode.rs:22-37), on a BSC(p=0.006)
+     batch where failing frames run deep, and at TM1536 on 3 flips;
   8. the bit-flip kernel against its plain PyTorch version on the card, all
      nine codes (B=256, 1-6 flips plus heavy corruption on half the batch,
      maxiters=20), clean codewords, maxiters 0 and 1, odd batch sizes, and
      once against the plain version on the CPU: identical bits, success and
      iterations;
-  9. the hard-decision slice's path: `waterfall(..., device="cuda")` at
-     TM8192, batch 8192, one batch per point, bit-flip over Eb/N0 6.5 dB,
-     BSC 0.006 and BEC 0.012 and soft min-sum at 1.0 dB, each point's frame
-     errors within a factor 2 of the stored curve (benchmarks/results);
-     launch counts are reset just before and read just after; then the
-     stage times (CUDA events) of one bit-flip and one min-sum batch.
+  9. the slices' waterfall paths: `waterfall(..., device="cuda")` at
+     TM8192, batch 8192, one batch per point: bit-flip over Eb/N0 6.5 dB,
+     BSC 0.006 and BEC 0.012, soft min-sum at 1.0 dB, and the quantized-LLR
+     points at Eb/N0 1.1 dB, maxiters 100 (layered "auto" in int8 and
+     int16, flooding "cuda_qc" in int8, int16 and float32); each point's
+     frame errors within a factor 2 of the stored curve or anchor
+     (benchmarks/results); launch counts are reset just before and read
+     just after each point; then the stage times (CUDA events) of one
+     bit-flip, one float32 and one int8 min-sum batch;
+ 10. the int8/int16 forms of the layered kernel against their plain version
+     on the card, all nine codes: batches where some frames fail and some
+     converge, with full-range random LLRs in each, clean batches, maxiters
+     0 and 1, B=257 and B=1, and once against the plain version on the CPU;
+ 11. the same for the flooding kernel in float32 (and alpha=0.8), int8 and
+     int16.
 Then one JSON line `{"kernels": [...]}`; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -72,6 +85,16 @@ OPS_PER_EDGE_ITER = 20
 # peaks above give no integer rate: they are divided by the float32 rate
 # outside the tensor cores (F32_OPS_PER_S), the SM's widest non-tensor pipe,
 # so the bound is a lower bound.
+# integer operations per edge and iteration of the int8/int16 forms of
+# csrc/layered_minsum.cu: the float32 count plus the clamp of t (2) and the
+# saturating abs (1)
+OPS_PER_EDGE_ITER_SAT = 23
+# operations per edge and iteration in csrc/flooding_minsum.cu, counted from
+# the source: sweep 1 (perm_inverse 4, the message u 6, add 1) and sweep 2
+# (perm_index 3, u 6, sub 1, self-correction 4, parity 2, abs 1, two-min 4,
+# sign 2); the int forms add two clamps (2 each) and the saturating abs (1)
+FLOOD_OPS_PER_EDGE_ITER = 34
+FLOOD_OPS_PER_EDGE_ITER_SAT = 39
 BF_OPS_PER_EDGE_ITER = 10
 BF_OPS_PER_VAR_ITER = 3
 BF_OPS_ERASURE_PER_EDGE = 5
@@ -90,6 +113,15 @@ WATERFALL_POINTS = (
     ("bf", "bsc", 0.006, 50, "waterfall_bf_tm8192_bsc.csv"),
     ("bf", "bec", 0.012, 50, "waterfall_bf_tm8192_bec.csv"),
     ("ms", "ebn0", 1.0, 100, "waterfall_ms_tm8192_ebn0.csv"),
+)
+# the quantized-LLR slice's points: TM8192, Eb/N0 1.1 dB, maxiters 100;
+# (impl, dtype, stored anchor measured on the TPU: frame errors in column 7)
+INT_WATERFALL_POINTS = (
+    ("auto", "int8", "ber_regression_points_i8.csv"),
+    ("auto", "int16", "ber_regression_points_i16.csv"),
+    ("cuda_qc", "int8", "ber_regression_points_i8_flooding.csv"),
+    ("cuda_qc", "int16", "ber_regression_points_i16_flooding.csv"),
+    ("cuda_qc", "float32", "ber_regression_points.csv"),
 )
 BAND = 2.0  # observed/stored frame errors in [1/BAND, BAND] (tests/test_ber_regression.py)
 
@@ -113,16 +145,16 @@ def main() -> None:
     from labrador_ldpc_tpu_torch.channel.awgn import _count_stats, make_trial_step
     from labrador_ldpc_tpu_torch.channel.hard import make_bf_trial_step
     from labrador_ldpc_tpu_torch.codes.expand import qc_structure
-    from labrador_ldpc_tpu_torch.ops import _nvcc, cuda_bf, cuda_layered
+    from labrador_ldpc_tpu_torch.ops import _nvcc, cuda_bf, cuda_layered, cuda_qc
     from labrador_ldpc_tpu_torch.ops.bitflip import bitflip_plain
-    from labrador_ldpc_tpu_torch.ops.qc_minsum import layered_minsum_plain
+    from labrador_ldpc_tpu_torch.ops.qc_minsum import flooding_minsum_plain, layered_minsum_plain
 
     dev = torch.device("cuda")
 
     # ---- 1. build -----------------------------------------------------------
     phase("1 build")
     t0 = time.perf_counter()
-    sources = (cuda_layered.SOURCE, cuda_bf.SOURCE)
+    sources = (cuda_layered.SOURCE, cuda_qc.SOURCE, cuda_bf.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         builds = list(pool.map(_nvcc.build, sources))
     print(f"built in {time.perf_counter() - t0:.2f} s")
@@ -132,7 +164,16 @@ def main() -> None:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"    {line.strip()}")
     cuda_layered._lib()  # load the libraries and declare the C signatures
+    cuda_qc._lib()
     cuda_bf._lib()
+    forms = cuda_layered.FORMS  # dtype -> "f32" | "i8" | "i16"
+
+    def reset_launches():
+        for mod in (cuda_layered, cuda_qc, cuda_bf):
+            mod.launches = 0
+        for mod in (cuda_layered, cuda_qc):
+            for form in mod.form_launches:
+                mod.form_launches[form] = 0
 
     # ---- 2. card ------------------------------------------------------------
     phase("2 card")
@@ -141,8 +182,8 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    kind = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
+    card_kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card_kind}")
 
     # ---- 3. encoder -----------------------------------------------------------
     phase("3 encoder vs golden CCSDS parity")
@@ -166,7 +207,15 @@ def main() -> None:
         llrs = (1.0 - 2.0 * cw + sigma * rng.standard_normal(cw.shape)).astype(np.float32)
         return torch.from_numpy(llrs).to(dev)
 
-    max_err = 0.0
+    errs: dict[str, float] = {}  # kernel form -> largest |kernel - plain| seen
+
+    def card_noisy_llrs(code, batch, ebn0_db, seed):
+        """BPSK over AWGN at Eb/N0, data and noise drawn on the card."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        data = torch.randint(0, 2, (batch, code.k), generator=g, device=dev, dtype=torch.uint8)
+        sigma = T.noise_sigma(ebn0_db, code, "ebn0")
+        noise = torch.randn((batch, code.n), generator=g, device=dev)
+        return 1.0 - 2.0 * T.encode_bits(code, data).to(torch.float32) + sigma * noise
 
     def max_diff(got, want) -> float:
         """Largest |difference| over bits, success and iterations."""
@@ -176,19 +225,28 @@ def main() -> None:
             (got.success.int() - want.success.int()).abs().max().item(),
         ))
 
-    def hold(label, code, llrs, maxiters, alpha=None):
+    kernels = {
+        "layered": (cuda_layered.layered_minsum, layered_minsum_plain),
+        "flooding": (cuda_qc.flooding_minsum, flooding_minsum_plain),
+    }
+
+    def note_err(kind, dtype, err):
+        name = f"{kind}_minsum_{forms[dtype]}"
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    def hold(label, code, llrs, maxiters, alpha=None, kind="layered"):
         """Kernel vs plain version on the card, same inputs: identical."""
-        nonlocal max_err
-        got = cuda_layered.layered_minsum(code, llrs, maxiters, alpha)
+        kernel, plain = kernels[kind]
+        got = kernel(code, llrs, maxiters, alpha)
         torch.cuda.synchronize()
-        want = layered_minsum_plain(qc_structure(code), llrs, maxiters, alpha)
+        want = plain(qc_structure(code), llrs, maxiters, alpha)
         err = max_diff(got, want)
-        max_err = max(max_err, err)
+        note_err(kind, llrs.dtype, err)
         n_ok = int(want.success.sum())
-        print(f"  {label:28s} B={llrs.shape[0]:5d} converged {n_ok:5d}  "
+        print(f"  {label:34s} B={llrs.shape[0]:5d} converged {n_ok:5d}  "
               f"mean iters {want.iterations.float().mean().item():6.2f}  max|diff| {err}")
         if err != 0:
-            fail(f"{label}: kernel differs from its plain version")
+            fail(f"{label}: {kind} kernel differs from its plain version")
         return got
 
     # ---- 4. kernel vs plain version, all nine codes ------------------------
@@ -225,7 +283,7 @@ def main() -> None:
         fail("impl='auto' does not resolve to the CUDA kernel on the card")
     T.decode_ms(code, T.hard_to_llrs(T.encode(code, batches[0][:8])), maxiters=maxiters)  # warm
     torch.cuda.synchronize()
-    cuda_layered.launches = 0
+    reset_launches()
     stages = ("copy in", "encode", "corrupt+llrs", "decode", "verify")
     stage_ms = dict.fromkeys(stages, 0.0)
     t0 = time.perf_counter()
@@ -262,6 +320,30 @@ def main() -> None:
     if main_launches < 1:
         fail("the main path did not launch the CUDA kernel")
 
+    # the same batch as 8-bit soft bits: quantize_llrs (scale 16) -> decode_ms
+    if T.resolve_impl(code, torch.int8, "auto") != "cuda_layered":
+        fail("impl='auto' does not resolve int8 LLRs to the CUDA kernel on the card")
+    data = torch.from_numpy(batches[0]).to(dev)
+    cw = T.encode(code, data)
+    cw[:, 0] ^= FLIPS
+    llrs_i8 = T.quantize_llrs(T.hard_to_llrs(cw, torch.float32), torch.int8)
+    T.decode_ms(code, llrs_i8[:8], maxiters=maxiters)  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = T.decode_ms(code, llrs_i8, maxiters=maxiters, impl="auto")
+    ok = bool(res.success.all()) and torch.equal(T.pack_bits(res.bits[:, : code.k]), data)
+    wall = time.perf_counter() - t0
+    int8_serving_launches = cuda_layered.form_launches["i8"]
+    print(f"  int8 serving batch (quantize_llrs scale 16, LLR values "
+          f"{sorted(llrs_i8.unique().tolist())}): {B} frames verified in {wall:.4f} s; mean iteration of convergence "
+          f"{res.iterations.float().mean().item():.3f}; launches of layered_minsum_i8: "
+          f"{int8_serving_launches}")
+    if not ok:
+        fail("an int8 serving frame did not decode to the data sent")
+    if int8_serving_launches < 1:
+        fail("the int8 serving batch did not launch the int8 form of the layered kernel")
+
     # ---- 6. deep iterations -----------------------------------------------------
     phase("6 TM8192 at 1.0 dB, B=256, maxiters=50")
     got = hold("TM8192 1.0 dB", code, noisy_llrs(code, 256, 1.0, seed=3), 50)
@@ -282,52 +364,84 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps, out
 
-    def measure(c, data_np):
+    def ops_per_edge_iter(kind, dtype):
+        sat = dtype != torch.float32
+        if kind == "layered":
+            return OPS_PER_EDGE_ITER_SAT if sat else OPS_PER_EDGE_ITER
+        return FLOOD_OPS_PER_EDGE_ITER_SAT if sat else FLOOD_OPS_PER_EDGE_ITER
+
+    def measure(kind, c, llrs, label, kern_reps=10, plain_reps=2, all_converge=True):
         """Kernel and plain version in turns (plain, kernel, kernel, plain)
-        on one serving batch of code c; returns the numbers of one row."""
-        nonlocal max_err
-        cw = T.encode(c, torch.from_numpy(data_np).to(dev))
-        cw[:, 0] ^= FLIPS
-        llrs = T.hard_to_llrs(cw, torch.float32)
+        on (B, n) LLRs of code c; returns the numbers of one row."""
+        kernel, plain_fn = kernels[kind]
         s = qc_structure(c)
-        plain = lambda: layered_minsum_plain(s, llrs, maxiters)  # noqa: E731
-        kern = lambda: cuda_layered.layered_minsum(c, llrs, maxiters)  # noqa: E731
-        plain_a, want = time_ms(plain, 2)
-        kern_a, got = time_ms(kern, 10)
-        kern_b, _ = time_ms(kern, 10)
-        plain_b, _ = time_ms(plain, 2)
+        plain = lambda: plain_fn(s, llrs, maxiters)  # noqa: E731
+        kern = lambda: kernel(c, llrs, maxiters)  # noqa: E731
+        plain_a, want = time_ms(plain, plain_reps)
+        kern_a, got = time_ms(kern, kern_reps)
+        kern_b, _ = time_ms(kern, kern_reps)
+        plain_b, _ = time_ms(plain, plain_reps)
         err = max_diff(got, want)
-        max_err = max(max_err, err)
-        if err != 0 or not bool(got.success.all()):
-            fail(f"{c}: kernel differs from its plain version, or a frame failed")
+        note_err(kind, llrs.dtype, err)
+        if err != 0 or (all_converge and not bool(got.success.all())):
+            fail(f"{label}: kernel differs from its plain version, or a frame failed")
         # work this data needs: a converged codeword ran iterations+1 sweeps,
         # a failed one maxiters
         sweeps = int(torch.where(got.success, got.iterations + 1, got.iterations).sum())
         p = c.params
-        nb = data_np.shape[0]
-        io_bytes = nb * p.n * 4 + nb * p.n_vars + nb + nb * 4
-        ops = OPS_PER_EDGE_ITER * p.paritycheck_sum * sweeps
+        nb = llrs.shape[0]
+        io_bytes = nb * p.n * llrs.element_size() + nb * p.n_vars + nb + nb * 4
+        ops = ops_per_edge_iter(kind, llrs.dtype) * p.paritycheck_sum * sweeps
         bytes_ms, ops_ms = io_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-        state_bytes = 4 * p.paritycheck_sum * 4 * sweeps + io_bytes
         row = dict(
             ms=min(kern_a, kern_b), plain_ms=min(plain_a, plain_b),
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         )
-        state_ms = state_bytes / HBM_BYTES_PER_S * 1e3
-        print(f"  {c}: kernel {kern_a:.4f} / {kern_b:.4f} ms per decode -> "
+        print(f"  {label}: kernel {kern_a:.4f} / {kern_b:.4f} ms per decode -> "
               f"{nb / row['ms'] * 1e3:.1f} cw/s; plain {plain_a:.4f} / {plain_b:.4f} ms")
-        print(f"  {c}: sweeps {sweeps} (mean {sweeps / nb:.3f} per codeword); in/out bytes "
-              f"{io_bytes}; f32 ops {ops}; bound {row['bound_ms']:.4f} ms (bytes "
-              f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms)")
-        print(f"  {c}: u/t' state traffic {state_bytes} B, computed from the shapes and "
-              f"sweeps: {state_ms:.4f} ms at the assumed peak of {HBM_BYTES_PER_S:.3g} B/s "
-              f"(not measured)")
+        print(f"  {label}: converged {int(got.success.sum())}/{nb}; sweeps {sweeps} (mean "
+              f"{sweeps / nb:.3f} per codeword); in/out bytes {io_bytes}; ops {ops}; bound "
+              f"{row['bound_ms']:.4f} ms (bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms)")
+        if kind == "layered":
+            state_bytes = 4 * p.paritycheck_sum * llrs.element_size() * sweeps + io_bytes
+            print(f"  {label}: u/t' state traffic {state_bytes} B, computed from the shapes and "
+                  f"sweeps: {state_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at the assumed peak of "
+                  f"{HBM_BYTES_PER_S:.3g} B/s (not measured)")
         return row
 
-    main_row = measure(code, batches[0])  # the main path: TM8192, the TPU kernel B1's shape
+    def three_flip_llrs(c, data_np, dtype=torch.float32):
+        cw = T.encode(c, torch.from_numpy(data_np).to(dev))
+        cw[:, 0] ^= FLIPS
+        llrs = T.hard_to_llrs(cw, torch.float32)
+        return llrs if dtype == torch.float32 else T.quantize_llrs(llrs, dtype)
+
+    # the main path: TM8192, the TPU kernel B1's shape
+    rows = {"layered_minsum_f32": measure("layered", code, three_flip_llrs(code, batches[0]),
+                                          f"{code} layered f32")}
+    main_row = rows["layered_minsum_f32"]
     c = T.get_code("TM1536")  # an M <= 256 code: the shape of the TPU kernel B2
-    measure(c, np.random.default_rng(1).integers(0, 256, (B, c.k // 8), dtype=np.uint8))
+    measure("layered", c, three_flip_llrs(
+        c, np.random.default_rng(1).integers(0, 256, (B, c.k // 8), dtype=np.uint8)),
+        f"{c} layered f32")
+    # the quantized-LLR forms and the flooding kernel (B3's shape) on the same
+    # 3-flip batch, quantized with the default scales
+    for family, dtypes in (("layered", (torch.int8, torch.int16)),
+                           ("flooding", (torch.float32, torch.int8, torch.int16))):
+        for dt in dtypes:
+            rows[f"{family}_minsum_{forms[dt]}"] = measure(
+                family, code, three_flip_llrs(code, batches[0], dt), f"{code} {family} {forms[dt]}")
+    # every new form at TM1536 too: an M <= 256 code, the shape of B2 and B4
+    c = T.get_code("TM1536")
+    data_b2 = np.random.default_rng(1).integers(0, 256, (B, c.k // 8), dtype=np.uint8)
+    for family, dtypes in (("layered", (torch.int8, torch.int16)),
+                           ("flooding", (torch.float32, torch.int8, torch.int16))):
+        for dt in dtypes:
+            measure(family, c, three_flip_llrs(c, data_b2, dt), f"{c} {family} {forms[dt]}")
+    # flooding float32 where it works hard: Eb/N0 1.1 dB (the waterfall point)
+    flood_1p1 = measure("flooding", code, card_noisy_llrs(code, B, 1.1, seed=110),
+                        f"{code} flooding f32 at 1.1 dB", kern_reps=3, plain_reps=1,
+                        all_converge=False)
 
     bf_max_err = 0.0
 
@@ -444,11 +558,11 @@ def main() -> None:
     # ---- 9. the hard-decision slice's path -----------------------------------------
     phase("9 slice path: waterfall(device='cuda'), TM8192, batch 8192, one batch per point")
 
-    def stored_frame_errors(fname, x, batch):
+    def stored_frame_errors(fname, x, batch, column=6):
         with open(ROOT / "benchmarks" / "results" / fname) as f:
             for row in csv.reader(f):
                 if row and not row[0].startswith("#") and row[0] == "TM8192" and float(row[1]) == x:
-                    return int(row[6]) / int(row[2]) * batch
+                    return int(row[column]) / int(row[2]) * batch
         fail(f"{fname} has no TM8192 row at {x}")
 
     torch.cuda.synchronize()
@@ -473,12 +587,42 @@ def main() -> None:
     if min(slice_launches.values()) < 1:
         fail("the waterfall did not launch both CUDA kernels")
 
+    # the quantized-LLR slice: int8/int16 through "auto" (the layered
+    # kernel's int forms) and "cuda_qc" (the flooding kernel) at 1.1 dB
+    int_launches = {f"{kind}_minsum_{form}": 0 for kind in kernels for form in forms.values()}
+    for impl, dtype_name, fname in INT_WATERFALL_POINTS:
+        torch.cuda.synchronize()
+        reset_launches()
+        (pt,) = T.waterfall(code, [1.1], batch=8192, maxiters=100, max_bits=1,
+                            max_bit_errors=10**9, noise_model="ebn0", dtype_name=dtype_name,
+                            impl=impl, seed=0)
+        point_launches = {f"layered_minsum_{f}": n for f, n in cuda_layered.form_launches.items()}
+        point_launches.update({f"flooding_minsum_{f}": n for f, n in cuda_qc.form_launches.items()})
+        want_kernel = ("layered" if impl == "auto" else "flooding") + "_minsum_" + \
+            forms[getattr(torch, dtype_name)]
+        want = stored_frame_errors(fname, 1.1, pt.trials, column=7)
+        print(f"  {impl:7s} {dtype_name:7s} maxiters=100: {pt.csv()}  frame errors "
+              f"{pt.frame_errors} vs stored {want:.0f} ({fname}); decode failures "
+              f"{pt.decode_failures}; mean iterations {pt.iterations / pt.trials:.2f}; "
+              f"{pt.trials / pt.elapsed_s:.1f} cw/s end to end (host clock, data made on the "
+              f"card); launches {dict((k, v) for k, v in point_launches.items() if v)}")
+        if pt.trials != 8192 or not want / BAND <= pt.frame_errors <= want * BAND:
+            fail(f"{impl} {dtype_name} 1.1 dB: {pt.frame_errors} frame errors, outside a factor "
+                 f"{BAND} of the stored {want:.0f}")
+        if point_launches[want_kernel] < 1 or sum(point_launches.values()) != \
+                point_launches[want_kernel]:
+            fail(f"{impl} {dtype_name}: the waterfall did not run on {want_kernel} alone")
+        for name, n in point_launches.items():
+            int_launches[name] += n
+
     # where one batch's time goes: the trial step's stages, CUDA events
     stages = ("draw", "encode", "channel", "decode", "count")
     for label, step, param in (
         ("bf bsc 0.006", make_bf_trial_step(code, 8192, 50, "bsc"), 0.006),
         ("ms ebn0 1.0 dB", make_trial_step(code, 8192, 100),
          T.noise_sigma(1.0, code, "ebn0")),
+        ("ms int8 ebn0 1.1 dB", make_trial_step(code, 8192, 100, "int8"),
+         T.noise_sigma(1.1, code, "ebn0")),
     ):
         g = torch.Generator(device=dev).manual_seed(1)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
@@ -498,40 +642,105 @@ def main() -> None:
         ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(len(stages))]
         print(f"  one batch of {label} (CUDA events): " + ", ".join(
             f"{name} {t:.3f} ms" for name, t in zip(stages, ms)) + f"; total {sum(ms):.3f} ms")
+
+    # ---- 10, 11. the int forms of the layered kernel, the flooding kernel --------
+    def quantized(llrs, dtype, seed, full_range=True):
+        """llrs as `dtype`: float32 as they are, ints through quantize_llrs
+        with an eighth of the rows uniform over the whole int range."""
+        if dtype == torch.float32:
+            return llrs
+        q = T.quantize_llrs(llrs, dtype)
+        info = torch.iinfo(dtype)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        rows = q.shape[0] // 8 if full_range else 0
+        q[:rows] = torch.randint(info.min, info.max + 1, (rows, q.shape[1]), generator=g,
+                                 device=dev, dtype=torch.int32).to(dtype)
+        return q
+
+    def mixed(c, batch, seed):
+        """Half the rows 1 dB below the code's partial-convergence point (most
+        fail), half 1.5 dB above it (most converge)."""
+        lo = card_noisy_llrs(c, batch - batch // 2, PARTIAL_EBN0[c.value] - 1.0, seed)
+        hi = card_noisy_llrs(c, batch // 2, PARTIAL_EBN0[c.value] + 1.5, seed + 1)
+        return torch.cat([lo, hi])
+
+    def corners(kind, dtypes):
+        for i, c in enumerate(T.ALL_CODES):
+            for dt in dtypes:
+                got = hold(f"{c} {kind} {forms[dt]} mixed", c, quantized(mixed(c, 256, 80 + i), dt,
+                                                                          i), 20, kind=kind)
+                if not 0 < int(got.success.sum()) < 256:
+                    fail(f"{c} {forms[dt]}: want a batch where some frames fail and some converge")
+        for dt in dtypes:
+            for name in ("TM8192", "TC128"):
+                c = T.get_code(name)
+                clean = quantized(card_noisy_llrs(c, 64, 100.0, 5).sign(), dt, 0, False)
+                got = hold(f"{name} {kind} {forms[dt]} clean", c, clean, 20, kind=kind)
+                if not bool(got.success.all()):
+                    fail(f"{name} {forms[dt]}: clean codewords must converge")
+            for name in ("TM1280", "TM8192"):
+                c = T.get_code(name)
+                for mi in (0, 1):
+                    got = hold(f"{name} {kind} {forms[dt]} maxiters={mi}", c,
+                               quantized(mixed(c, 64, 9), dt, 9), mi, kind=kind)
+                    if mi == 0 and (bool(got.bits.any()) or bool(got.success.any())):
+                        fail(f"{name}: at maxiters=0 the bits stay 0 and nothing converges")
+            for name, nb in (("TM2048", 257), ("TC256", 257), ("TM6144", 1)):
+                c = T.get_code(name)
+                hold(f"{name} {kind} {forms[dt]} B={nb}", c, quantized(mixed(c, nb, 13), dt, 13),
+                     20, kind=kind)
+            c = T.get_code("TM1536")
+            x = quantized(mixed(c, 64, 11), dt, 11)
+            on_card = kernels[kind][0](c, x, 20)
+            on_cpu = kernels[kind][1](qc_structure(c), x.cpu(), 20)
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)):
+                fail(f"{kind} {forms[dt]} kernel on the card differs from the plain version on "
+                     "the CPU")
+            print(f"  TM1536 {kind} {forms[dt]} kernel on the card == plain version on the CPU")
+
+    phase("10 layered kernel, int8/int16 forms, vs plain version on the card")
+    print("  tolerance: exact (integer arithmetic); max|diff| must be 0")
+    corners("layered", (torch.int8, torch.int16))
+
+    phase("11 flooding kernel vs plain version on the card")
+    print("  tolerance: exact (the same float32 operations in the same order; integer "
+          "arithmetic); max|diff| must be 0")
+    corners("flooding", (torch.float32, torch.int8, torch.int16))
+    for name in ("TM8192", "TC256"):
+        c = T.get_code(name)
+        hold(f"{name} flooding f32 alpha=0.8", c, mixed(c, 256, 7), 20, 0.8, kind="flooding")
     print(f"  {smi}")
 
-    print(json.dumps({"kernels": [
-        {
-            "name": "layered_minsum_f32",
-            "route": "cuda",
-            "source": "labrador_ldpc_tpu_torch/csrc/layered_minsum.cu",
-            "replaces": "labrador_ldpc_tpu/ops/pallas_qc.py:728",
-            "also_replaces": "labrador_ldpc_tpu/ops/pallas_tc.py:268",
-            "launches": main_launches,
-            "max_abs_err": max_err,
-            "ms": main_row["ms"],
-            "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"],
-            "library_ms": None,
-        },
-        {
-            "name": "bitflip_u8",
-            "route": "cuda",
-            "source": "labrador_ldpc_tpu_torch/csrc/bitflip.cu",
-            "replaces": "labrador_ldpc_tpu/ops/pallas_bf.py:53",
-            "also_replaces": "labrador_ldpc_tpu/ops/pallas_tc.py:741",
-            "launches": slice_launches["bitflip_u8"],
-            "max_abs_err": bf_max_err,
-            "ms": bf_row["ms"],
-            "plain_ms": bf_row["plain_ms"],
-            "bound_ms": bf_row["bound_ms"],
-            "bound_by": bf_row["bound_by"],
-            "library_ms": None,
-        },
-    ]}))
+    def entry(name, replaces, also, launches, row, max_abs_err):
+        kind = name.split("_")[0]
+        source = {"layered": "layered_minsum.cu", "flooding": "flooding_minsum.cu",
+                  "bitflip": "bitflip.cu"}[kind]
+        return {
+            "name": name, "route": "cuda",
+            "source": f"labrador_ldpc_tpu_torch/csrc/{source}",
+            "replaces": f"labrador_ldpc_tpu/ops/{replaces}",
+            "also_replaces": f"labrador_ldpc_tpu/ops/{also}",
+            "launches": launches, "max_abs_err": max_abs_err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+        }
+
+    layered_tpu = ("pallas_qc.py:728", "pallas_tc.py:268")
+    flooding_tpu = ("pallas_qc.py:265", "pallas_tc.py:506")
+    table = [entry("layered_minsum_f32", *layered_tpu, main_launches, main_row,
+                   errs["layered_minsum_f32"])]
+    for name in ("layered_minsum_i8", "layered_minsum_i16", "flooding_minsum_f32",
+                 "flooding_minsum_i8", "flooding_minsum_i16"):
+        tpu = layered_tpu if name.startswith("layered") else flooding_tpu
+        table.append(entry(name, *tpu, int_launches[name], rows[name], errs[name]))
+    table.append(entry("bitflip_u8", "pallas_bf.py:53", "pallas_tc.py:741",
+                       slice_launches["bitflip_u8"], bf_row, bf_max_err))
+    print(f"  flooding f32 at 1.1 dB (B={B}, maxiters={maxiters}): kernel {flood_1p1['ms']:.4f} "
+          f"ms, plain {flood_1p1['plain_ms']:.4f} ms, bound {flood_1p1['bound_ms']:.4f} ms "
+          f"({flood_1p1['bound_by']})")
+    print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": card_kind, "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -3,7 +3,9 @@
 The same CCSDS LDPC codec for one NVIDIA H100, beside the JAX package (which
 stays the reference and is never imported from here). So far it carries the
 nine code tables, the converters, the batched GF(2) encoder, the row-layered
-self-corrected min-sum decode (float32, csrc/layered_minsum.cu), the
+(csrc/layered_minsum.cu) and flooding (csrc/flooding_minsum.cu)
+self-corrected min-sum decoders in float32 and saturating int8/int16, the
+reference-order decoder (float32, int8, int16, int32), the LLR quantizer, the
 Gallager bit-flip and erasure decoders (csrc/bitflip.cu), the AWGN, BSC and
 BEC trial steps and the BER/FER waterfall (also `python -m
 labrador_ldpc_tpu_torch waterfall`).
@@ -17,6 +19,8 @@ Entry points run on CUDA unless the caller passes device="cpu"::
     cw   = ldpc.encode(code, data_bytes)              # (B, k/8) -> (B, n/8)
     llrs = ldpc.hard_to_llrs(cw, torch.float32)       # or soft demod output
     res  = ldpc.decode_ms(code, llrs, maxiters=50)    # the layered CUDA kernel
+    q    = ldpc.quantize_llrs(soft, torch.int8)       # 8-bit soft bits, scale 16
+    res  = ldpc.decode_ms(code, q, impl="cuda_qc")    # the flooding CUDA kernel
     res  = ldpc.decode_bf(code, ldpc.unpack_bits(cw)) # the bit-flip CUDA kernel
     data = ldpc.pack_bits(res.bits[:, :code.k])
     pts  = ldpc.waterfall(code, [0.006], batch=8192, noise_model="bsc", decoder="bf")
@@ -30,13 +34,19 @@ from .codes.expand import (
     parity_edges,
     qc_structure,
 )
-from .channel.awgn import resolve_impl
+from .channel.awgn import default_llr_scale, quantize_llrs, resolve_impl
 from .device import resolve_device
 from .ops.convert import hard_to_llrs, llrs_to_hard, pack_bits, unpack_bits
 from .ops.encoder import encode, encode_bits, encode_onto, make_encoder
-from .ops.minsum import MSResult, decode_ms
-from .ops.qc_minsum import make_ms_decoder_layered
+from .ops.minsum import MSResult, decode_ms, make_ms_decoder
+from .ops.qc_minsum import (
+    make_ms_decoder_layered,
+    make_ms_decoder_qc,
+    make_ms_decoder_qc_i8,
+    make_ms_decoder_qc_int,
+)
 from .ops.cuda_layered import make_ms_decoder_cuda_layered
+from .ops.cuda_qc import make_ms_decoder_cuda_qc
 from .ops.bitflip import (
     BFResult,
     decode_bf,
@@ -56,7 +66,9 @@ __all__ = [
     "parity_edges", "parity_check_matrix", "generator_parity_matrix", "decoder_tables",
     "qc_structure",
     "encode", "encode_bits", "encode_onto", "make_encoder",
-    "decode_ms", "MSResult", "make_ms_decoder_layered", "make_ms_decoder_cuda_layered",
+    "decode_ms", "MSResult", "make_ms_decoder", "make_ms_decoder_layered",
+    "make_ms_decoder_cuda_layered", "make_ms_decoder_qc", "make_ms_decoder_qc_int",
+    "make_ms_decoder_qc_i8", "make_ms_decoder_cuda_qc", "quantize_llrs", "default_llr_scale",
     "decode_bf", "BFResult", "decode_erasures_bits", "decode_erasures_mask",
     "make_bf_decoder", "make_bf_decoder_qc", "make_bf_decoder_cuda",
     "waterfall", "SnrPoint", "noise_sigma", "ChannelStats",

@@ -5,6 +5,8 @@ names and a `--device` flag (default cuda):
 
     python -m labrador_ldpc_tpu_torch waterfall --decoder bf --noise-model bsc \\
         --code TM8192 --snrs 0.006 --device cpu
+    python -m labrador_ldpc_tpu_torch waterfall --code TM8192 --snrs 1.1 \\
+        --noise-model ebn0 --dtype int8 --impl cuda_qc
     python -m labrador_ldpc_tpu_torch info
 
 The CSV schema matches the reference perftest (`code,snr,trials,bits,errors,
@@ -16,7 +18,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-MS_IMPLS = ("auto", "layered", "cuda_layered")
+MS_IMPLS = ("auto", "ref", "qc", "qc_i8", "qc_i16", "layered", "cuda_layered", "cuda_qc")
 BF_IMPLS = ("auto", "cuda", "qc", "gather")
 
 
@@ -41,7 +43,24 @@ def _cmd_waterfall(args) -> int:
             f"error: --noise-model {args.noise_model} requires --decoder "
             f"bf{' or ms_hard' if args.noise_model == 'bsc' else ''}"
         )
-    if args.decoder != "ms":
+    if args.dtype in ("bfloat16", "float64"):
+        raise SystemExit(
+            f"error: --dtype {args.dtype} is not in this port yet (ROADMAP Queue A5); "
+            "use float32, int8, int16 or int32"
+        )
+    if args.decoder == "ms_hard" and args.impl in ("qc_i8", "qc_i16"):
+        raise SystemExit(f"error: --decoder ms_hard is float32-only; --impl {args.impl} "
+                         "decodes int LLRs")
+    if args.decoder == "ms":
+        if args.impl == "qc_i8" and args.dtype != "int8":
+            raise SystemExit("error: --impl qc_i8 requires --dtype int8")
+        if args.impl == "qc_i16" and args.dtype != "int16":
+            raise SystemExit("error: --impl qc_i16 requires --dtype int16")
+        if args.dtype == "int32" and args.impl not in ("ref", "auto"):
+            raise SystemExit("error: --dtype int32 requires --impl ref (or auto)")
+        if args.llr_scale is not None and args.dtype not in ("int8", "int16"):
+            raise SystemExit("error: --llr-scale quantizes --dtype int8/int16 only")
+    else:
         if args.dtype != "float32":
             raise SystemExit(
                 f"error: --decoder {args.decoder} takes hard bits and is float32-only; use "
@@ -118,16 +137,17 @@ def main(argv=None) -> int:
                         "hard-sliced input, or bit-flip (channel/hard.py)")
     w.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16", "float64", "int8", "int16", "int32"],
-                   help="LLR dtype of --decoder ms (this port decodes float32; the "
-                        "others name the roadmap item that brings them)")
+                   help="LLR dtype of --decoder ms; int8/int16 are quantized with "
+                        "--llr-scale (bfloat16/float64: ROADMAP Queue A5)")
     w.add_argument("--alpha", type=float, default=None, help="normalized min-sum factor")
     w.add_argument("--impl", choices=sorted(set(MS_IMPLS + BF_IMPLS)),
                    default="auto",
                    help="decoder implementation (default auto: the hand-written CUDA "
-                        f"kernel on a CUDA device); --decoder ms/ms_hard take "
-                        f"{'|'.join(MS_IMPLS)}, --decoder bf {'|'.join(BF_IMPLS)}")
+                        "layered kernel on a CUDA device, ref for int32); --decoder "
+                        f"ms/ms_hard take {'|'.join(MS_IMPLS)}, --decoder bf "
+                        f"{'|'.join(BF_IMPLS)}")
     w.add_argument("--llr-scale", type=float, default=None,
-                   help="int-LLR quantizer scale (int dtypes, ROADMAP Queue A5)")
+                   help="int-LLR quantizer scale (default: 16 for int8, 256 for int16)")
     w.add_argument("--seed", type=int, default=0)
     w.add_argument("--checkpoint", default=None, metavar="PATH",
                    help="persist partial counts to PATH (JSONL) and resume "

@@ -1,16 +1,25 @@
-"""Decoder registry, AWGN noise conventions and the soft trial step.
+"""Decoder registry, AWGN noise conventions, the LLR quantizer and the soft
+trial step.
 
-PyTorch counterpart of `labrador_ldpc_tpu/channel/awgn.py` for the
-implementations this port has so far: "layered" (plain PyTorch) and
-"cuda_layered" (the hand-written CUDA kernel), float32. Every other impl or
-dtype raises a ValueError that names the queue item still to come, instead of
-failing deep inside a decoder.
+PyTorch counterpart of `labrador_ldpc_tpu/channel/awgn.py`. The registry's
+implementations, with the JAX package's names where they differ:
+  * "ref": the reference-order decoder (float32, int8, int16, int32);
+  * "qc": flooding min-sum, plain PyTorch (int8/int16 go to the saturating
+    int form), "qc_i8"/"qc_i16" the int form explicitly;
+  * "layered": row-layered min-sum, plain PyTorch (float32, int8, int16);
+  * "cuda_layered": the layered CUDA kernel (JAX's "pallas_layered");
+  * "cuda_qc": the flooding CUDA kernel (JAX's "pallas_qc").
+A wrapper of a CUDA kernel runs its plain version on a CPU device. The
+sum-product impls and the bf16/float64 dtypes raise a ValueError that names
+the queue item still to come, instead of failing deep inside a decoder.
 
 Two noise models (as the JAX package):
   * "perftest": the reference's convention — noise sigma = 10^(-snr/10)
     added directly to +-1 LLRs (perftest/src/main.rs:15; min-sum is
     scale-invariant, decoder.rs:332-335, so the LLRs stay unscaled);
   * "ebn0": BPSK over AWGN at Eb/N0 dB — sigma^2 = 1/(2 R 10^(x/10)).
+int8/int16 trial steps quantize the channel's float32 LLRs with
+`quantize_llrs` (scale `llr_scale`, default `default_llr_scale`).
 
 A trial step draws its data and noise from an explicit `torch.Generator`
 (`TrialStep.draw`) and hands them to a pure function (`TrialStep.apply`):
@@ -22,6 +31,7 @@ on both sides.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, NamedTuple
 
 import torch
@@ -29,39 +39,32 @@ import torch
 from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
 from ..ops.encoder import encode_bits
+from ..ops.cuda_layered import make_ms_decoder_cuda_layered
+from ..ops.cuda_qc import make_ms_decoder_cuda_qc
+from ..ops.minsum import DTYPES, INT_DTYPES, check_dtype, make_ms_decoder
+from ..ops.qc_minsum import (
+    SAT_DTYPES,
+    make_ms_decoder_layered,
+    make_ms_decoder_qc,
+    make_ms_decoder_qc_int,
+)
 
-__all__ = ["ChannelStats", "TrialStep", "make_trial_step", "noise_sigma", "resolve_impl"]
+__all__ = [
+    "ChannelStats", "TrialStep", "default_llr_scale", "make_trial_step", "noise_sigma",
+    "quantize_llrs", "resolve_impl",
+]
 
-IMPLS = ("auto", "layered", "cuda_layered")
+IMPLS = ("auto", "ref", "qc", "qc_i8", "qc_i16", "layered", "cuda_layered", "cuda_qc")
 
-# implementations of the JAX package that this port does not have yet
+# implementations of the JAX package that this port does not have yet, or
+# has under another name
 _LATER = {
-    "ref": "the reference-order decoder comes with ROADMAP Queue A7",
-    "qc": "flooding min-sum comes with ROADMAP Queue A7 (kernels B3/B4)",
-    "qc_i8": "the saturating int flooding path comes with ROADMAP Queue A7",
-    "qc_i16": "the saturating int flooding path comes with ROADMAP Queue A7",
-    "pallas_qc": "the flooding kernel comes with ROADMAP Queue B3/B4",
+    "pallas_qc": "is the TPU kernel; its CUDA port is impl='cuda_qc'",
     "pallas_layered": "is the TPU kernel; its CUDA port is impl='cuda_layered'",
     "sp": "sum-product comes with ROADMAP Queue A9",
     "sp_layered": "layered sum-product comes with ROADMAP Queue A9 (kernel B7)",
     "sp_pallas": "the sum-product kernel comes with ROADMAP Queue B7",
 }
-
-
-def _check_dtype(dtype: torch.dtype) -> None:
-    if dtype == torch.float32:
-        return
-    if dtype in (torch.bfloat16, torch.int8, torch.int16):
-        raise ValueError(
-            f"{dtype} LLRs come with the main-path dtype slice (ROADMAP Queue A5); "
-            "this port decodes float32"
-        )
-    if dtype in (torch.int32, torch.float64):
-        raise ValueError(
-            f"{dtype} LLRs need the reference-order decoder (ROADMAP Queue A7); "
-            "this port decodes float32"
-        )
-    raise ValueError(f"unsupported LLR dtype {dtype}; this port decodes float32")
 
 
 def _dtype_from_name(name: str) -> torch.dtype:
@@ -74,36 +77,79 @@ def _dtype_from_name(name: str) -> torch.dtype:
 def resolve_impl(code, dtype, impl: str, device="cuda") -> str:
     """Resolve impl="auto" to a concrete implementation name.
 
-    "auto" is the hand-written CUDA kernel on a CUDA device and the plain
-    PyTorch layered decoder on the CPU. Concrete names pass through after
-    the same checks, so callers can key caches on the resolved name.
+    "auto" takes float32, int8 and int16 LLRs to the hand-written layered
+    CUDA kernel on a CUDA device and to the plain PyTorch layered decoder on
+    the CPU, and int32 to the reference-order decoder (as the JAX package,
+    awgn.py:63-67). Concrete names pass through after the same checks, so
+    callers can key caches on the resolved name.
     """
     get_code(code)
-    _check_dtype(dtype)
+    check_dtype(dtype, DTYPES)
     if impl in _LATER:
-        raise ValueError(f"impl {impl!r} is not in this port yet: {impl} {_LATER[impl]}")
+        raise ValueError(f"impl {impl!r} is not in this port: {impl} {_LATER[impl]}")
     if impl not in IMPLS:
         raise ValueError(f"unknown decoder impl {impl!r} ({'|'.join(IMPLS)})")
     if impl != "auto":
         return impl
+    if dtype == torch.int32:
+        return "ref"
     return "cuda_layered" if resolve_device(device).type == "cuda" else "layered"
 
 
 def _make_decoder(code, dtype, maxiters, alpha, impl: str, device="cuda"):
-    """Build the decoder for a (resolved or "auto") impl on `device`.
-
-    "layered": plain PyTorch row-layered self-corrected min-sum;
-    "cuda_layered": the same function through the CUDA kernel (its plain
-    version on a CPU device). Returns fn(llrs: (B, n)) -> MSResult.
-    """
+    """Build the decoder of a (resolved or "auto") impl for `dtype` LLRs on
+    `device`; the dtype and alpha rules follow the JAX package's registry
+    (awgn.py:106-156). Returns fn(llrs: (B, n)) -> MSResult."""
     impl = resolve_impl(code, dtype, impl, device)
+    if impl == "ref":
+        if alpha is not None and dtype in INT_DTYPES:
+            raise ValueError("normalized min-sum (alpha) requires float32 LLRs")
+        return make_ms_decoder(code, maxiters, alpha, device=device)
+    if impl in ("qc_i8", "qc_i16"):
+        want = torch.int8 if impl == "qc_i8" else torch.int16
+        if dtype != want:
+            raise ValueError(f"impl {impl!r} requires dtype {want}, got {dtype}")
+    if dtype == torch.int32:
+        raise ValueError(f"impl {impl!r} takes float32/int8/int16; use impl='ref' for int32")
+    if alpha is not None and dtype in SAT_DTYPES:
+        raise ValueError("the saturating int paths do not support alpha (float32 only)")
+    if impl in ("qc", "qc_i8", "qc_i16"):
+        if dtype in SAT_DTYPES:
+            return make_ms_decoder_qc_int(code, dtype, maxiters, device=device)
+        return make_ms_decoder_qc(code, maxiters, alpha, device=device)
     if impl == "layered":
-        from ..ops.qc_minsum import make_ms_decoder_layered
-
         return make_ms_decoder_layered(code, maxiters, alpha, device=device)
-    from ..ops.cuda_layered import make_ms_decoder_cuda_layered
-
+    if impl == "cuda_qc":
+        return make_ms_decoder_cuda_qc(code, maxiters, alpha, device=device)
     return make_ms_decoder_cuda_layered(code, maxiters, alpha, device=device)
+
+
+def default_llr_scale(dtype: torch.dtype) -> float:
+    """Default quantizer scale of an int LLR dtype: 16 for int8 (the signal
+    at +-16, clipping at about 8 sigma in the waterfall region), 256 for
+    int16. Min-sum is scale-invariant (decoder.rs:332-335): only the
+    quantization and clipping noise move the BER."""
+    if dtype == torch.int8:
+        return 16.0
+    if dtype == torch.int16:
+        return 256.0
+    raise ValueError(f"no default LLR scale for dtype {dtype}")
+
+
+def quantize_llrs(llrs, dtype: torch.dtype, scale: float | None = None) -> torch.Tensor:
+    """Quantize float32 channel LLRs to int8/int16: clip(round(llr * scale)).
+
+    Rounds half to even (as jnp.round) and clips before the cast, so no
+    float outside the int range is ever cast. A bare cast would truncate
+    +-1 +- noise to {-1, 0, 1} and lose most of the soft information.
+    """
+    if dtype not in SAT_DTYPES:
+        raise ValueError(f"quantize_llrs makes int8 or int16 LLRs, not {dtype}")
+    if scale is None:
+        scale = default_llr_scale(dtype)
+    info = torch.iinfo(dtype)
+    llrs = torch.as_tensor(llrs)
+    return torch.clamp(torch.round(llrs * scale), info.min, info.max).to(dtype)
 
 
 class ChannelStats(NamedTuple):
@@ -188,6 +234,17 @@ class TrialStep:
         return self.apply(*self.draw(gen, param), param)
 
 
+def _awgn_llrs(cw_bits: torch.Tensor, noise: torch.Tensor, sigma, dtype: torch.dtype,
+               llr_scale: float | None) -> torch.Tensor:
+    """The AWGN channel's LLRs in the decoder's dtype: quantized for
+    int8/int16, cast (truncated toward zero, as the JAX package's astype) for
+    int32."""
+    soft = _awgn(cw_bits, noise, sigma)
+    if dtype in SAT_DTYPES:
+        return quantize_llrs(soft, dtype, llr_scale)
+    return soft.to(dtype)
+
+
 def make_trial_step(
     code: LDPCCode | str,
     batch: int,
@@ -199,14 +256,20 @@ def make_trial_step(
     device="cuda",
 ) -> TrialStep:
     """Soft-channel trial step: fn(gen, sigma) -> ChannelStats over `batch`
-    codewords: random data -> encode -> BPSK +-1 -> AWGN(sigma) -> min-sum
-    -> counters, on `device`. float32 LLRs, unscaled (the reference's
-    convention; min-sum is scale-invariant)."""
+    codewords: random data -> encode -> BPSK +-1 -> AWGN(sigma) -> LLRs in
+    `dtype_name` -> min-sum -> counters, on `device`. float32 LLRs stay
+    unscaled (the reference's convention; min-sum is scale-invariant); int8
+    and int16 are quantized with `quantize_llrs` at `llr_scale` (default
+    `default_llr_scale`), which no other dtype takes."""
     code = get_code(code)
     dev = resolve_device(device)
     dtype = _dtype_from_name(dtype_name)
     impl = resolve_impl(code, dtype, impl, dev)
-    if llr_scale is not None:
-        raise ValueError("llr_scale quantizes int LLRs, which come with ROADMAP Queue A5")
+    if llr_scale is not None and dtype not in SAT_DTYPES:
+        raise ValueError(f"llr_scale quantizes int8/int16 LLRs; dtype {dtype_name} takes none")
     decoder = _make_decoder(code, dtype, maxiters, alpha, impl, dev)
-    return TrialStep(code, batch, "normal", _awgn, decoder, impl, dev)
+    if dtype == torch.float32:
+        channel = _awgn
+    else:
+        channel = partial(_awgn_llrs, dtype=dtype, llr_scale=llr_scale)
+    return TrialStep(code, batch, "normal", channel, decoder, impl, dev)

@@ -185,8 +185,11 @@ def waterfall(
     LLRs per `noise_model` "perftest"/"ebn0"), "ms_hard" (min-sum on
     hard-sliced channel output) or "bf" (hard-decision bit-flip). With
     noise_model "bsc"/"bec" the `snrs_db` values are flip/erasure
-    probabilities. "ms" takes impl auto|layered|cuda_layered, "bf"
-    auto|cuda|qc|gather; "auto" is the CUDA kernel on a CUDA device.
+    probabilities. "ms" takes impl auto|ref|qc|qc_i8|qc_i16|layered|
+    cuda_layered|cuda_qc and `dtype_name` float32|int8|int16|int32 (int8 and
+    int16 quantized with `llr_scale`, default `default_llr_scale`), "bf"
+    auto|cuda|qc|gather; "auto" is a CUDA kernel on a CUDA device (the
+    reference-order decoder for int32).
 
     Up to `pipeline_depth` trial steps are kept in flight (CUDA launches are
     asynchronous), so the card is not idle between batches. As in the

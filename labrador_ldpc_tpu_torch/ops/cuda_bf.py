@@ -23,7 +23,7 @@ from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
 from ._nvcc import load_library
 from .bitflip import BFResult, _hard_input, bitflip_plain
-from .cuda_layered import addend_table
+from .cuda_layered import addend_table, column_order
 
 __all__ = ["make_bf_decoder_cuda", "bitflip", "vote_addends", "SOURCE"]
 
@@ -60,8 +60,7 @@ def _device_tables(code: LDPCCode, device: torch.device) -> dict:
             f"last block column; {code} has {p.punctured_bits} punctured bits, M={M}"
         )
     table, row_off = addend_table(s)
-    col_edges = np.argsort(table[:, 1], kind="stable").astype(np.int32)
-    col_off = np.concatenate([[0], np.cumsum(np.bincount(table[:, 1], minlength=Cc))])
+    col_edges, col_off = column_order(table, Cc)
     votes = vote_addends(table, Cc) if p.punctured_bits else np.zeros(0, np.int32)
     as_dev = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)  # noqa: E731
     return dict(table=as_dev(table), row_off=as_dev(row_off), col_edges=as_dev(col_edges),

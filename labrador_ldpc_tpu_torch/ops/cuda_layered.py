@@ -3,11 +3,13 @@
 Wraps `csrc/layered_minsum.cu`, the Hopper port of the two TPU kernels of
 the main path (labrador_ldpc_tpu/ops/pallas_qc.py:728
 make_ms_decoder_pallas_layered and labrador_ldpc_tpu/ops/pallas_tc.py:268
-make_ms_decoder_pallas_tc_layered), float32, for all nine codes.
+make_ms_decoder_pallas_tc_layered), for all nine codes, in float32 and in
+the saturating int8/int16 forms (one C entry point per dtype).
 
 On a CPU tensor the wrapper runs the plain version
 (`qc_minsum.layered_minsum_plain`); on a CUDA tensor it launches the kernel
-or raises. `launches` counts kernel launches and nothing else.
+or raises. `launches` counts kernel launches and nothing else;
+`form_launches` splits the same count by dtype form ("f32", "i8", "i16").
 """
 
 from __future__ import annotations
@@ -23,14 +25,20 @@ from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
 from ._nvcc import load_library
 from .minsum import MSResult
-from .qc_minsum import _check_f32_llrs, layered_minsum_plain
+from .qc_minsum import check_llrs, layered_minsum_plain
 
-__all__ = ["make_ms_decoder_cuda_layered", "layered_minsum", "addend_table", "SOURCE"]
+__all__ = ["make_ms_decoder_cuda_layered", "layered_minsum", "addend_table", "column_order",
+           "FORMS", "SOURCE"]
 
 SOURCE = "layered_minsum.cu"
 
+# the kernels' dtype forms: the suffix of each C entry point
+FORMS = {torch.float32: "f32", torch.int8: "i8", torch.int16: "i16"}
+
 # kernel launches since import; read and reset as `cuda_layered.launches`
 launches = 0
+# the same launches by dtype form; reset with `launches`
+form_launches = dict.fromkeys(FORMS.values(), 0)
 
 
 def addend_table(s: QCStructure) -> tuple[np.ndarray, np.ndarray]:
@@ -46,6 +54,14 @@ def addend_table(s: QCStructure) -> tuple[np.ndarray, np.ndarray]:
     return np.asarray(rows, dtype=np.int32), np.asarray(off, dtype=np.int32)
 
 
+def column_order(table: np.ndarray, n_block_cols: int) -> tuple[np.ndarray, np.ndarray]:
+    """The addends grouped by block column, in addend order within a column
+    ((sumA,) int32), and the (Cc+1,) int32 offsets of each column's first."""
+    col_edges = np.argsort(table[:, 1], kind="stable").astype(np.int32)
+    col_off = np.concatenate([[0], np.cumsum(np.bincount(table[:, 1], minlength=n_block_cols))])
+    return col_edges, col_off.astype(np.int32)
+
+
 @lru_cache(maxsize=None)
 def _device_tables(code: LDPCCode, device: torch.device):
     s = qc_structure(code)
@@ -59,10 +75,11 @@ def _device_tables(code: LDPCCode, device: torch.device):
 @lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = load_library(SOURCE)
-    fn = lib.layered_minsum_f32
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 8 + [i32] * 8 + [ctypes.c_float, ptr]
-    fn.restype = i32
+    for form in FORMS.values():
+        fn = getattr(lib, f"layered_minsum_{form}")
+        fn.argtypes = [ptr] * 8 + [i32] * 8 + [ctypes.c_float, ptr]
+        fn.restype = i32
     return lib
 
 
@@ -81,11 +98,13 @@ def _launch(code: LDPCCode, llrs: torch.Tensor, maxiters: int, alpha: float | No
         return MSResult(success, iterations, bits)
     table, off = _device_tables(code, dev)
     sumA = table.shape[0]
-    # per-edge state lives in device memory (module docstring of the
-    # source); iteration 0 is peeled inside the kernel, so no zeroing
-    u = torch.empty((B, sumA, M), dtype=torch.float32, device=dev)
-    tp = torch.empty((B, sumA, M), dtype=torch.float32, device=dev)
-    fn = _lib().layered_minsum_f32
+    # per-edge state lives in device memory, in the LLRs' dtype (module
+    # docstring of the source); iteration 0 is peeled inside the kernel, so
+    # no zeroing
+    u = torch.empty((B, sumA, M), dtype=llrs.dtype, device=dev)
+    tp = torch.empty((B, sumA, M), dtype=llrs.dtype, device=dev)
+    form = FORMS[llrs.dtype]
+    fn = getattr(_lib(), f"layered_minsum_{form}")
     with torch.cuda.device(dev):
         err = fn(
             llrs.data_ptr(), bits.data_ptr(), success.data_ptr(), iterations.data_ptr(),
@@ -95,17 +114,18 @@ def _launch(code: LDPCCode, llrs: torch.Tensor, maxiters: int, alpha: float | No
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"layered_minsum_f32 launch failed with CUDA error {err}")
+        raise RuntimeError(f"layered_minsum_{form} launch failed with CUDA error {err}")
     launches += 1
+    form_launches[form] += 1
     return MSResult(success, iterations, bits)
 
 
 def layered_minsum(code: LDPCCode | str, llrs: torch.Tensor, maxiters: int,
                    alpha: float | None = None) -> MSResult:
-    """Decode (B, n) float32 LLRs where they lie: the kernel on CUDA, the
-    plain version on the CPU."""
+    """Decode (B, n) float32, int8 or int16 LLRs where they lie: the kernel
+    on CUDA, the plain version on the CPU."""
     code = get_code(code)
-    _check_f32_llrs(llrs, code.n)
+    check_llrs(llrs, code.n, alpha)
     if llrs.device.type == "cuda":
         return _launch(code, llrs, maxiters, alpha)
     if llrs.device.type == "cpu":
@@ -121,8 +141,8 @@ def make_ms_decoder_cuda_layered(
 ):
     """Row-layered self-corrected min-sum decoder through the CUDA kernel.
 
-    Returns fn(llrs: (B, n) float32) -> MSResult, run on `device`;
-    `device="cpu"` runs the plain version.
+    Returns fn(llrs: (B, n) float32, int8 or int16) -> MSResult, run on
+    `device`; `device="cpu"` runs the plain version. `alpha` needs float32.
     """
     code = get_code(code)
     dev = resolve_device(device)

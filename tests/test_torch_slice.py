@@ -8,6 +8,7 @@ import pytest
 import torch
 
 import labrador_ldpc_tpu as J
+from labrador_ldpc_tpu.channel.awgn import quantize_llrs as jquantize_llrs
 
 import labrador_ldpc_tpu_torch as T
 from labrador_ldpc_tpu_torch.channel.awgn import make_trial_step
@@ -62,6 +63,32 @@ def test_tm8192_decode_bf_pipeline_matches_jax():
     np.testing.assert_array_equal(T.pack_bits(res.bits[:, : code.k], device="cpu").numpy(), data)
 
 
+def test_tm8192_int8_serving_pipeline_matches_jax():
+    """The quantized-LLR slice: bytes -> encode -> 3 flips -> hard_to_llrs f32
+    -> quantize_llrs int8 (scale 16) -> decode_ms (auto: the int8 layered
+    decoder on the CPU; the int8 form of the layered CUDA kernel on a card),
+    B=16, against the JAX package's same chain."""
+    code = T.LDPCCode.TM8192
+    data = np.random.default_rng(2).integers(0, 256, (16, code.k // 8), dtype=np.uint8)
+    cw = T.encode(code, data, device="cpu")
+    cw[:, 0] ^= FLIPS
+    llrs = T.quantize_llrs(T.hard_to_llrs(cw, torch.float32, device="cpu"), torch.int8)
+    assert T.resolve_impl(code, torch.int8, "auto", "cpu") == "layered"
+    res = T.decode_ms(code, llrs, maxiters=12, device="cpu")
+
+    jcw = np.array(J.encode(J.LDPCCode.TM8192, jnp.asarray(data)))
+    jcw[:, 0] ^= FLIPS
+    jllrs = jquantize_llrs(J.hard_to_llrs(jnp.asarray(jcw), jnp.float32), jnp.int8)
+    jres = J.decode_ms(J.LDPCCode.TM8192, jllrs, maxiters=12)
+
+    np.testing.assert_array_equal(llrs.numpy(), np.asarray(jllrs))
+    np.testing.assert_array_equal(res.bits.numpy(), np.asarray(jres.bits))
+    np.testing.assert_array_equal(res.success.numpy(), np.asarray(jres.success))
+    np.testing.assert_array_equal(res.iterations.numpy(), np.asarray(jres.iterations))
+    assert res.success.all()
+    np.testing.assert_array_equal(T.pack_bits(res.bits[:, : code.k], device="cpu").numpy(), data)
+
+
 def test_auto_resolves_per_device():
     assert T.resolve_impl("TM8192", torch.float32, "auto", "cpu") == "layered"
     assert T.resolve_impl("TM8192", torch.float32, "cuda_layered", "cpu") == "cuda_layered"
@@ -75,9 +102,9 @@ def test_auto_resolves_per_device():
     "impl,dtype,match",
     [
         ("auto", torch.bfloat16, "Queue A5"),
-        ("auto", torch.int8, "Queue A5"),
-        ("layered", torch.int32, "Queue A7"),
-        ("ref", torch.float32, "Queue A7"),
+        ("auto", torch.float64, "Queue A5"),
+        ("layered", torch.int32, "impl='ref'"),
+        ("pallas_qc", torch.int8, "cuda_qc"),
         ("pallas_layered", torch.float32, "cuda_layered"),
         ("sp_layered", torch.float32, "Queue A9"),
         ("bogus", torch.float32, "unknown decoder impl"),
@@ -95,6 +122,10 @@ ENTRY_POINTS = {
     "decode_ms": lambda: T.decode_ms("TC128", np.ones((1, 128), np.float32)),
     "make_ms_decoder_layered": lambda: T.make_ms_decoder_layered("TC128"),
     "make_ms_decoder_cuda_layered": lambda: T.make_ms_decoder_cuda_layered("TC128"),
+    "make_ms_decoder": lambda: T.make_ms_decoder("TC128"),
+    "make_ms_decoder_qc": lambda: T.make_ms_decoder_qc("TC128"),
+    "make_ms_decoder_qc_int": lambda: T.make_ms_decoder_qc_int("TC128"),
+    "make_ms_decoder_cuda_qc": lambda: T.make_ms_decoder_cuda_qc("TC128"),
     "make_encoder": lambda: T.make_encoder("TC128"),
     "decode_bf": lambda: T.decode_bf("TC128", np.zeros((1, 128), np.uint8)),
     "decode_erasures_bits": lambda: T.decode_erasures_bits("TM1280", np.zeros((1, 1408), np.uint8)),
