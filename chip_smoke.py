@@ -7,7 +7,7 @@ repository checkout: it imports labrador_ldpc_tpu_torch and nothing of the
 JAX package, and reads the CCSDS golden parity from tests/golden_vectors.py
 (plain data). Every phase is fatal on failure; nothing is caught.
 
-  1. build every CUDA source of the port with nvcc, all at once (three);
+  1. build every CUDA source of the port with nvcc, all at once (four);
   2. print the card's name and power limit (nvidia-smi);
   3. encoder on the card against the golden CCSDS parity of all nine codes;
   4. the layered min-sum kernel (float32) against its plain PyTorch version
@@ -29,7 +29,9 @@ JAX package, and reads the CCSDS golden parity from tests/golden_vectors.py
      float32 form also at Eb/N0 1.1 dB, every form at TM1536, the
      bit-flip kernel at TM8192, B=16384, maxiters=50 on the 3-flip batch
      (the decode_bf protocol, benches/decode.rs:22-37), on a BSC(p=0.006)
-     batch where failing frames run deep, and at TM1536 on 3 flips;
+     batch where failing frames run deep, and at TM1536 on 3 flips; the
+     layered sum-product kernel at TM8192, Eb/N0 0.9 dB, B=8192, maxiters
+     100 (true LLRs 2y/sigma^2), and at TM1536, Eb/N0 2.0 dB;
   8. the bit-flip kernel against its plain PyTorch version on the card, all
      nine codes (B=256, 1-6 flips plus heavy corruption on half the batch,
      maxiters=20), clean codewords, maxiters 0 and 1, odd batch sizes, and
@@ -49,7 +51,20 @@ JAX package, and reads the CCSDS golden parity from tests/golden_vectors.py
      converge, with full-range random LLRs in each, clean batches, maxiters
      0 and 1, B=257 and B=1, and once against the plain version on the CPU;
  11. the same for the flooding kernel in float32 (and alpha=0.8), int8 and
-     int16.
+     int16;
+ 12. the layered sum-product kernel against its plain version on the card,
+     all nine codes (B=256, maxiters 20, true LLRs where some frames fail and
+     some converge), clean batches, maxiters 0 and 1, B=257 and B=1: identical
+     bits, success and iterations; its launch shape per code; and once
+     against the plain version on the CPU, within the CPU tests' tolerance
+     (tests/test_torch_sumproduct.py: PyTorch's CPU exp/log are not the
+     card's);
+ 13. the sum-product slice's waterfall points, `waterfall(..., device="cuda",
+     noise_model="ebn0")`, batch 8192, maxiters 100, one batch each:
+     impl="sp_layered" (the kernel) at TM8192 0.9 dB and impl="sp" (flooding
+     BP, plain PyTorch on the card) at TM2048 1.3 dB, each within a factor 2
+     of its stored anchor, with the launch counters reset around each point;
+     then the stage times of one sp_layered batch.
 Then one JSON line `{"kernels": [...]}`; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -114,6 +129,21 @@ WATERFALL_POINTS = (
     ("bf", "bec", 0.012, 50, "waterfall_bf_tm8192_bec.csv"),
     ("ms", "ebn0", 1.0, 100, "waterfall_ms_tm8192_ebn0.csv"),
 )
+# float32 operations per edge and iteration in csrc/sumproduct.cu, counted
+# from the source: pass 1 (perm_index 3, sub, abs, phi 8, sign compare, sum
+# add, sign xor, signed store's select), pass 2 (abs, sub, phi 8, sign bit 2,
+# xor, negate-select, perm_index 3, sub, add) and the syndrome (perm_index 3,
+# compare, xor). phi counts its clamp (2), negate, expf, add, sub, IEEE
+# division and logf as one operation each; expf, logf and the division take
+# many instructions each, so the bound is a lower bound
+SP_OPS_PER_EDGE_ITER = 41
+# the sum-product slice's waterfall points, Eb/N0, maxiters 100, batch 8192:
+# (impl, code, dB, stored point measured with the JAX package on the TPU)
+SP_WATERFALL_POINTS = (
+    ("sp_layered", "TM8192", 0.9, "ber_regression_points_sp.csv"),
+    ("sp", "TM2048", 1.3, "sp_ms_gap_points.csv"),
+)
+
 # the quantized-LLR slice's points: TM8192, Eb/N0 1.1 dB, maxiters 100;
 # (impl, dtype, stored anchor measured on the TPU: frame errors in column 7)
 INT_WATERFALL_POINTS = (
@@ -145,16 +175,17 @@ def main() -> None:
     from labrador_ldpc_tpu_torch.channel.awgn import _count_stats, make_trial_step
     from labrador_ldpc_tpu_torch.channel.hard import make_bf_trial_step
     from labrador_ldpc_tpu_torch.codes.expand import qc_structure
-    from labrador_ldpc_tpu_torch.ops import _nvcc, cuda_bf, cuda_layered, cuda_qc
+    from labrador_ldpc_tpu_torch.ops import _nvcc, cuda_bf, cuda_layered, cuda_qc, cuda_sp
     from labrador_ldpc_tpu_torch.ops.bitflip import bitflip_plain
     from labrador_ldpc_tpu_torch.ops.qc_minsum import flooding_minsum_plain, layered_minsum_plain
+    from labrador_ldpc_tpu_torch.ops.sumproduct import layered_sp_plain
 
     dev = torch.device("cuda")
 
     # ---- 1. build -----------------------------------------------------------
     phase("1 build")
     t0 = time.perf_counter()
-    sources = (cuda_layered.SOURCE, cuda_qc.SOURCE, cuda_bf.SOURCE)
+    sources = (cuda_layered.SOURCE, cuda_qc.SOURCE, cuda_bf.SOURCE, cuda_sp.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         builds = list(pool.map(_nvcc.build, sources))
     print(f"built in {time.perf_counter() - t0:.2f} s")
@@ -166,10 +197,11 @@ def main() -> None:
     cuda_layered._lib()  # load the libraries and declare the C signatures
     cuda_qc._lib()
     cuda_bf._lib()
+    cuda_sp._lib()
     forms = cuda_layered.FORMS  # dtype -> "f32" | "i8" | "i16"
 
     def reset_launches():
-        for mod in (cuda_layered, cuda_qc, cuda_bf):
+        for mod in (cuda_layered, cuda_qc, cuda_bf, cuda_sp):
             mod.launches = 0
         for mod in (cuda_layered, cuda_qc):
             for form in mod.form_launches:
@@ -216,6 +248,11 @@ def main() -> None:
         sigma = T.noise_sigma(ebn0_db, code, "ebn0")
         noise = torch.randn((batch, code.n), generator=g, device=dev)
         return 1.0 - 2.0 * T.encode_bits(code, data).to(torch.float32) + sigma * noise
+
+    def card_true_llrs(code, batch, ebn0_db, seed):
+        """card_noisy_llrs as true LLRs 2y/sigma^2, the sum-product decoders' input."""
+        sigma = T.noise_sigma(ebn0_db, code, "ebn0")
+        return card_noisy_llrs(code, batch, ebn0_db, seed) * (2.0 / (sigma * sigma))
 
     def max_diff(got, want) -> float:
         """Largest |difference| over bits, success and iterations."""
@@ -500,7 +537,53 @@ def main() -> None:
     c = T.get_code("TM1536")
     measure_bf("TM1536 bit-flip, 3 flips", c, flipped_bits(
         c, np.random.default_rng(1).integers(0, 256, (B, c.k // 8), dtype=np.uint8)), maxiters)
-    print("  no single PyTorch call computes either decode: library_ms is null")
+
+    sp_max_err = 0.0
+
+    def measure_sp(label, c, llrs, mi):
+        """The sum-product kernel and its plain version in turns on (B, n) true
+        LLRs of code c; returns the numbers of one row."""
+        nonlocal sp_max_err
+        s = qc_structure(c)
+        plain = lambda: layered_sp_plain(s, llrs, mi)  # noqa: E731
+        kern = lambda: cuda_sp.layered_sp(c, llrs, mi)  # noqa: E731
+        plain_a, want = time_ms(plain, 1)
+        kern_a, got = time_ms(kern, 3)
+        kern_b, _ = time_ms(kern, 3)
+        plain_b, _ = time_ms(plain, 1)
+        err = max_diff(got, want)
+        sp_max_err = max(sp_max_err, err)
+        if err != 0:
+            fail(f"{label}: sum-product kernel differs from its plain version")
+        per_cw = torch.where(got.success, got.iterations + 1, got.iterations)
+        sweeps = int(per_cw.sum())
+        p = c.params
+        nb = llrs.shape[0]
+        io_bytes = nb * p.n * 4 + nb * p.n_vars + 5 * nb
+        ops = SP_OPS_PER_EDGE_ITER * p.paritycheck_sum * sweeps
+        bytes_ms, ops_ms = io_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+        row = dict(
+            ms=min(kern_a, kern_b), plain_ms=min(plain_a, plain_b),
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        )
+        print(f"  {label}: kernel {kern_a:.4f} / {kern_b:.4f} ms per decode -> "
+              f"{nb / row['ms'] * 1e3:.1f} cw/s; plain {plain_a:.4f} / {plain_b:.4f} ms")
+        print(f"  {label}: converged {int(got.success.sum())}/{nb}; sweeps {sweeps} (mean "
+              f"{sweeps / nb:.3f}, max {int(per_cw.max())} per codeword); in/out bytes "
+              f"{io_bytes}; ops {ops}; bound {row['bound_ms']:.4f} ms (bytes {bytes_ms:.4f} ms, "
+              f"operations {ops_ms:.4f} ms); launch shape {cuda_sp.launch_config(c)}")
+        return row
+
+    # the sum-product slice's shapes: TM8192 at its waterfall anchor (the TPU
+    # kernel B7's shape, M >= 512), TM1536 (M <= 256, where the JAX package
+    # serves the XLA twin)
+    sp_row = measure_sp("TM8192 sum-product 0.9 dB, B=8192, maxiters=100", code,
+                        card_true_llrs(code, 8192, 0.9, seed=90), 100)
+    c = T.get_code("TM1536")
+    measure_sp("TM1536 sum-product 2.0 dB, B=8192, maxiters=100", c,
+               card_true_llrs(c, 8192, 2.0, seed=91), 100)
+    print("  no single PyTorch call computes any of these decodes: library_ms is null")
 
     # ---- 8. bit-flip kernel vs plain version ------------------------------------
     phase("8 bit-flip kernel vs plain version on the card")
@@ -615,33 +698,32 @@ def main() -> None:
         for name, n in point_launches.items():
             int_launches[name] += n
 
-    # where one batch's time goes: the trial step's stages, CUDA events
-    stages = ("draw", "encode", "channel", "decode", "count")
-    for label, step, param in (
-        ("bf bsc 0.006", make_bf_trial_step(code, 8192, 50, "bsc"), 0.006),
-        ("ms ebn0 1.0 dB", make_trial_step(code, 8192, 100),
-         T.noise_sigma(1.0, code, "ebn0")),
-        ("ms int8 ebn0 1.1 dB", make_trial_step(code, 8192, 100, "int8"),
-         T.noise_sigma(1.1, code, "ebn0")),
-    ):
+    def stage_times(label, step, param):
+        """Where one batch's time goes: the trial step's stages, CUDA events."""
+        stages = ("draw", "encode", "channel", "decode", "count")
         g = torch.Generator(device=dev).manual_seed(1)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
         torch.cuda.synchronize()
         ev[0].record()
         data, noise = step.draw(g, param)
         ev[1].record()
-        cw_bits = T.encode_bits(code, data)
+        cw_bits = T.encode_bits(step.code, data)
         ev[2].record()
         x = step.channel(cw_bits, noise, param)
         ev[3].record()
         res = step.decoder(x)
         ev[4].record()
-        _count_stats(8192, code.k, data, res).frame_errors.item()
+        _count_stats(step.batch, step.code.k, data, res).frame_errors.item()
         ev[5].record()
         torch.cuda.synchronize()
         ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(len(stages))]
         print(f"  one batch of {label} (CUDA events): " + ", ".join(
             f"{name} {t:.3f} ms" for name, t in zip(stages, ms)) + f"; total {sum(ms):.3f} ms")
+
+    stage_times("bf bsc 0.006", make_bf_trial_step(code, 8192, 50, "bsc"), 0.006)
+    stage_times("ms ebn0 1.0 dB", make_trial_step(code, 8192, 100), T.noise_sigma(1.0, code, "ebn0"))
+    stage_times("ms int8 ebn0 1.1 dB", make_trial_step(code, 8192, 100, "int8"),
+                T.noise_sigma(1.1, code, "ebn0"))
 
     # ---- 10, 11. the int forms of the layered kernel, the flooding kernel --------
     def quantized(llrs, dtype, seed, full_range=True):
@@ -709,13 +791,121 @@ def main() -> None:
     for name in ("TM8192", "TC256"):
         c = T.get_code(name)
         hold(f"{name} flooding f32 alpha=0.8", c, mixed(c, 256, 7), 20, 0.8, kind="flooding")
+
+    # ---- 12. the sum-product kernel ------------------------------------------------
+    phase("12 layered sum-product kernel vs plain version on the card")
+    print("  tolerance: exact (the same float32 operations in the same order, the CUDA math "
+          "library's expf/logf on both sides); max|diff| must be 0")
+
+    def hold_sp(label, c, llrs, mi):
+        nonlocal sp_max_err
+        got = cuda_sp.layered_sp(c, llrs, mi)
+        torch.cuda.synchronize()
+        want = layered_sp_plain(qc_structure(c), llrs, mi)
+        err = max_diff(got, want)
+        sp_max_err = max(sp_max_err, err)
+        print(f"  {label:28s} B={llrs.shape[0]:5d} converged {int(want.success.sum()):5d}  "
+              f"mean iters {want.iterations.float().mean().item():6.2f}  max|diff| {err}")
+        if err != 0:
+            fail(f"{label}: sum-product kernel differs from its plain version")
+        return got
+
+    def sp_mixed(c, batch, seed):
+        """True LLRs: a third 1 dB below the code's partial-convergence point
+        of min-sum (most fail), a third at it, a third 1 dB above (most
+        converge)."""
+        k = batch // 3
+        parts = ((k, -1.0), (k, 0.0), (batch - 2 * k, 1.0))
+        return torch.cat([card_true_llrs(c, nb, PARTIAL_EBN0[c.value] + off, seed + j)
+                          for j, (nb, off) in enumerate(parts) if nb])
+
+    for i, c in enumerate(T.ALL_CODES):
+        got = hold_sp(f"{c} mixed", c, sp_mixed(c, 256, 120 + i), 20)
+        if not 0 < int(got.success.sum()) < 256:
+            fail(f"{c}: want a batch where some frames fail and some converge")
+        print(f"    launch shape {cuda_sp.launch_config(c)}")
+    for name in ("TM8192", "TC128"):
+        c = T.get_code(name)
+        got = hold_sp(f"{name} clean", c, card_true_llrs(c, 64, 100.0, 5), 20)
+        if not bool(got.success.all()):
+            fail(f"{name}: clean codewords must converge")
+    for name in ("TM1280", "TM8192"):
+        c = T.get_code(name)
+        for mi in (0, 1):
+            got = hold_sp(f"{name} maxiters={mi}", c, sp_mixed(c, 64, 9), mi)
+            if mi == 0 and (bool(got.bits.any()) or bool(got.success.any())):
+                fail(f"{name}: at maxiters=0 the bits stay 0 and nothing converges")
+    for name, nb in (("TM2048", 257), ("TC256", 257), ("TM6144", 1)):
+        c = T.get_code(name)
+        hold_sp(f"{name} B={nb}", c, sp_mixed(c, nb, 13), 20)
+    # against the CPU's plain version, which the CPU tests hold to the JAX
+    # twin: PyTorch's CPU exp/log are not the card's, so the tolerance is the
+    # CPU tests' (tests/test_torch_sumproduct.py): frames the CPU converges
+    # decode to the same bits, iterations within 1; at most 1 other success
+    c = T.get_code("TM1536")
+    x = sp_mixed(c, 64, 11)
+    on_card = cuda_sp.layered_sp(c, x, 20)
+    on_cpu = layered_sp_plain(qc_structure(c), x.cpu(), 20)
+    ok = on_cpu.success
+    card = [t.cpu() for t in on_card]
+    d_iter = int((card[1][ok] - on_cpu.iterations[ok]).abs().max()) if bool(ok.any()) else 0
+    print(f"  TM1536 kernel on the card vs plain version on the CPU: max|diff| "
+          f"{max_diff(T.MSResult(*card), on_cpu)}, on the {int(ok.sum())} frames the CPU "
+          f"converges: iterations within {d_iter}")
+    if not (bool(card[0][ok].all()) and torch.equal(card[2][ok], on_cpu.bits[ok]) and d_iter <= 1
+            and int(card[0][~ok].sum()) <= 1):
+        fail("sum-product kernel on the card is outside the CPU tests' tolerance of the CPU plain "
+             "version")
+
+    # ---- 13. the sum-product slice's path ------------------------------------------
+    phase("13 sum-product slice: waterfall(device='cuda', noise_model='ebn0'), batch 8192, "
+          "maxiters 100, one batch per point")
+
+    def sp_anchor(fname, name, x, batch):
+        """A stored sum-product point's frame errors, scaled to `batch` trials."""
+        with open(ROOT / "benchmarks" / "results" / fname) as f:
+            for row in csv.reader(f):
+                if not row or row[0] != name:
+                    continue
+                if fname.startswith("sp_ms_gap"):  # code,surface,ebn0_db,trials,..,frame_errors,fer
+                    if row[1] == "sp" and float(row[2]) == x:
+                        return int(row[7]) / int(row[3]) * batch
+                elif float(row[1]) == x:  # code,snr_db,trials,..,noise_model,frame_errors
+                    return int(row[7]) / int(row[2]) * batch
+        fail(f"{fname} has no {name} sum-product row at {x}")
+
+    sp_launches = 0
+    for impl, name, x, fname in SP_WATERFALL_POINTS:
+        c = T.get_code(name)
+        torch.cuda.synchronize()
+        reset_launches()
+        (pt,) = T.waterfall(c, [x], batch=8192, maxiters=100, max_bits=1, max_bit_errors=10**9,
+                            noise_model="ebn0", impl=impl, seed=0, device="cuda")
+        point_launches = dict(sumproduct_f32=cuda_sp.launches,
+                              layered_minsum=cuda_layered.launches,
+                              flooding_minsum=cuda_qc.launches, bitflip_u8=cuda_bf.launches)
+        want = sp_anchor(fname, name, x, pt.trials)
+        print(f"  {impl:10s} {name} {x} dB: {pt.csv()}  frame errors {pt.frame_errors} vs stored "
+              f"{want:.0f} ({fname}); decode failures {pt.decode_failures}; mean iterations "
+              f"{pt.iterations / pt.trials:.2f}; {pt.trials / pt.elapsed_s:.1f} cw/s end to end "
+              f"(host clock, data made on the card); launches {point_launches}")
+        if pt.trials != 8192 or not want / BAND <= pt.frame_errors <= want * BAND:
+            fail(f"{impl} {name} {x} dB: {pt.frame_errors} frame errors, outside a factor {BAND} "
+                 f"of the stored {want:.0f}")
+        want_sp = pt.trials // 8192 if impl == "sp_layered" else 0  # one launch per batch
+        if point_launches["sumproduct_f32"] != want_sp or sum(point_launches.values()) != want_sp:
+            fail(f"{impl}: want {want_sp} sumproduct_f32 launches and no other kernel")
+        if impl == "sp_layered":
+            sp_launches = point_launches["sumproduct_f32"]
+    stage_times("sp_layered ebn0 0.9 dB", make_trial_step(code, 8192, 100, impl="sp_layered"),
+                T.noise_sigma(0.9, code, "ebn0"))
     print(f"  {smi}")
 
     def entry(name, replaces, also, launches, row, max_abs_err):
         kind = name.split("_")[0]
         source = {"layered": "layered_minsum.cu", "flooding": "flooding_minsum.cu",
-                  "bitflip": "bitflip.cu"}[kind]
-        return {
+                  "bitflip": "bitflip.cu", "sumproduct": "sumproduct.cu"}[kind]
+        out = {
             "name": name, "route": "cuda",
             "source": f"labrador_ldpc_tpu_torch/csrc/{source}",
             "replaces": f"labrador_ldpc_tpu/ops/{replaces}",
@@ -724,6 +914,9 @@ def main() -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
         }
+        if also is None:
+            del out["also_replaces"]
+        return out
 
     layered_tpu = ("pallas_qc.py:728", "pallas_tc.py:268")
     flooding_tpu = ("pallas_qc.py:265", "pallas_tc.py:506")
@@ -735,6 +928,7 @@ def main() -> None:
         table.append(entry(name, *tpu, int_launches[name], rows[name], errs[name]))
     table.append(entry("bitflip_u8", "pallas_bf.py:53", "pallas_tc.py:741",
                        slice_launches["bitflip_u8"], bf_row, bf_max_err))
+    table.append(entry("sumproduct_f32", "pallas_sp.py:48", None, sp_launches, sp_row, sp_max_err))
     print(f"  flooding f32 at 1.1 dB (B={B}, maxiters={maxiters}): kernel {flood_1p1['ms']:.4f} "
           f"ms, plain {flood_1p1['plain_ms']:.4f} ms, bound {flood_1p1['bound_ms']:.4f} ms "
           f"({flood_1p1['bound_by']})")

@@ -6,8 +6,9 @@ nine code tables, the converters, the batched GF(2) encoder, the row-layered
 (csrc/layered_minsum.cu) and flooding (csrc/flooding_minsum.cu)
 self-corrected min-sum decoders in float32 and saturating int8/int16, the
 reference-order decoder (float32, int8, int16, int32), the LLR quantizer, the
-Gallager bit-flip and erasure decoders (csrc/bitflip.cu), the AWGN, BSC and
-BEC trial steps and the BER/FER waterfall (also `python -m
+Gallager bit-flip and erasure decoders (csrc/bitflip.cu), the sum-product
+decoders (flooding, and row-layered with csrc/sumproduct.cu), the AWGN, BSC
+and BEC trial steps and the BER/FER waterfall (also `python -m
 labrador_ldpc_tpu_torch waterfall`).
 
 Entry points run on CUDA unless the caller passes device="cpu"::
@@ -24,6 +25,7 @@ Entry points run on CUDA unless the caller passes device="cpu"::
     res  = ldpc.decode_bf(code, ldpc.unpack_bits(cw)) # the bit-flip CUDA kernel
     data = ldpc.pack_bits(res.bits[:, :code.k])
     pts  = ldpc.waterfall(code, [0.006], batch=8192, noise_model="bsc", decoder="bf")
+    pts  = ldpc.waterfall(code, [0.9], batch=8192, noise_model="ebn0", impl="sp_layered")
 """
 
 from .codes.params import ALL_CODES, TC_CODES, TM_CODES, CodeParams, LDPCCode, get_code
@@ -56,6 +58,8 @@ from .ops.bitflip import (
     make_bf_decoder_qc,
 )
 from .ops.cuda_bf import make_bf_decoder_cuda
+from .ops.sumproduct import make_sp_decoder, make_sp_decoder_layered
+from .ops.cuda_sp import make_sp_decoder_cuda
 from .channel.awgn import ChannelStats, noise_sigma
 from .channel.waterfall import SnrPoint, waterfall
 
@@ -71,6 +75,7 @@ __all__ = [
     "make_ms_decoder_qc_i8", "make_ms_decoder_cuda_qc", "quantize_llrs", "default_llr_scale",
     "decode_bf", "BFResult", "decode_erasures_bits", "decode_erasures_mask",
     "make_bf_decoder", "make_bf_decoder_qc", "make_bf_decoder_cuda",
+    "make_sp_decoder", "make_sp_decoder_layered", "make_sp_decoder_cuda",
     "waterfall", "SnrPoint", "noise_sigma", "ChannelStats",
     "resolve_impl", "resolve_device",
     "hard_to_llrs", "llrs_to_hard", "pack_bits", "unpack_bits",

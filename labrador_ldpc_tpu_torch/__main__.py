@@ -7,6 +7,8 @@ names and a `--device` flag (default cuda):
         --code TM8192 --snrs 0.006 --device cpu
     python -m labrador_ldpc_tpu_torch waterfall --code TM8192 --snrs 1.1 \\
         --noise-model ebn0 --dtype int8 --impl cuda_qc
+    python -m labrador_ldpc_tpu_torch waterfall --code TM8192 --snrs 0.9 \\
+        --noise-model ebn0 --impl sp_layered
     python -m labrador_ldpc_tpu_torch info
 
 The CSV schema matches the reference perftest (`code,snr,trials,bits,errors,
@@ -18,7 +20,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-MS_IMPLS = ("auto", "ref", "qc", "qc_i8", "qc_i16", "layered", "cuda_layered", "cuda_qc")
+SP_IMPLS = ("sp", "sp_layered", "cuda_sp")  # sum-product: float32 true LLRs, decoder ms
+MS_IMPLS = ("auto", "ref", "qc", "qc_i8", "qc_i16", "layered", "cuda_layered", "cuda_qc",
+            *SP_IMPLS)
 BF_IMPLS = ("auto", "cuda", "qc", "gather")
 
 
@@ -43,6 +47,16 @@ def _cmd_waterfall(args) -> int:
             f"error: --noise-model {args.noise_model} requires --decoder "
             f"bf{' or ms_hard' if args.noise_model == 'bsc' else ''}"
         )
+    if args.impl in SP_IMPLS:
+        if args.dtype != "float32":
+            raise SystemExit(f"error: --impl {args.impl} (sum-product) is float32-only")
+        if args.decoder == "ms_hard":
+            raise SystemExit(
+                f"error: --decoder ms_hard does not take --impl {args.impl}: sum-product needs "
+                "true channel LLRs, and ms_hard feeds fixed +-1 LLRs (use --decoder ms)"
+            )
+        if args.alpha is not None:
+            raise SystemExit(f"error: --impl {args.impl} (sum-product) takes no --alpha")
     if args.dtype in ("bfloat16", "float64"):
         raise SystemExit(
             f"error: --dtype {args.dtype} is not in this port yet (ROADMAP Queue A5); "
@@ -144,7 +158,8 @@ def main(argv=None) -> int:
                    default="auto",
                    help="decoder implementation (default auto: the hand-written CUDA "
                         "layered kernel on a CUDA device, ref for int32); --decoder "
-                        f"ms/ms_hard take {'|'.join(MS_IMPLS)}, --decoder bf "
+                        f"ms/ms_hard take {'|'.join(MS_IMPLS)} (sum-product "
+                        f"{'|'.join(SP_IMPLS)}: float32, --decoder ms only), --decoder bf "
                         f"{'|'.join(BF_IMPLS)}")
     w.add_argument("--llr-scale", type=float, default=None,
                    help="int-LLR quantizer scale (default: 16 for int8, 256 for int16)")

@@ -8,10 +8,15 @@ implementations, with the JAX package's names where they differ:
     int form), "qc_i8"/"qc_i16" the int form explicitly;
   * "layered": row-layered min-sum, plain PyTorch (float32, int8, int16);
   * "cuda_layered": the layered CUDA kernel (JAX's "pallas_layered");
-  * "cuda_qc": the flooding CUDA kernel (JAX's "pallas_qc").
+  * "cuda_qc": the flooding CUDA kernel (JAX's "pallas_qc");
+  * "sp": flooding sum-product, plain PyTorch;
+  * "sp_layered": row-layered sum-product, the CUDA kernel on a CUDA device
+    and its plain version on the CPU (as JAX's: the fused kernel on the
+    accelerator, the twin elsewhere); "cuda_sp" the same kernel by name
+    (JAX's "sp_pallas"). float32 only, no alpha; "auto" never picks them.
 A wrapper of a CUDA kernel runs its plain version on a CPU device. The
-sum-product impls and the bf16/float64 dtypes raise a ValueError that names
-the queue item still to come, instead of failing deep inside a decoder.
+bf16/float64 dtypes raise a ValueError that names the queue item still to
+come, instead of failing deep inside a decoder.
 
 Two noise models (as the JAX package):
   * "perftest": the reference's convention — noise sigma = 10^(-snr/10)
@@ -19,7 +24,9 @@ Two noise models (as the JAX package):
     scale-invariant, decoder.rs:332-335, so the LLRs stay unscaled);
   * "ebn0": BPSK over AWGN at Eb/N0 dB — sigma^2 = 1/(2 R 10^(x/10)).
 int8/int16 trial steps quantize the channel's float32 LLRs with
-`quantize_llrs` (scale `llr_scale`, default `default_llr_scale`).
+`quantize_llrs` (scale `llr_scale`, default `default_llr_scale`); the
+sum-product trial steps scale them to true channel LLRs 2y/sigma^2 (BP is
+not scale-invariant).
 
 A trial step draws its data and noise from an explicit `torch.Generator`
 (`TrialStep.draw`) and hands them to a pure function (`TrialStep.apply`):
@@ -41,6 +48,7 @@ from ..device import resolve_device
 from ..ops.encoder import encode_bits
 from ..ops.cuda_layered import make_ms_decoder_cuda_layered
 from ..ops.cuda_qc import make_ms_decoder_cuda_qc
+from ..ops.cuda_sp import make_sp_decoder_cuda
 from ..ops.minsum import DTYPES, INT_DTYPES, check_dtype, make_ms_decoder
 from ..ops.qc_minsum import (
     SAT_DTYPES,
@@ -48,22 +56,23 @@ from ..ops.qc_minsum import (
     make_ms_decoder_qc,
     make_ms_decoder_qc_int,
 )
+from ..ops.sumproduct import make_sp_decoder
 
 __all__ = [
     "ChannelStats", "TrialStep", "default_llr_scale", "make_trial_step", "noise_sigma",
-    "quantize_llrs", "resolve_impl",
+    "quantize_llrs", "resolve_impl", "SP_IMPLS",
 ]
 
-IMPLS = ("auto", "ref", "qc", "qc_i8", "qc_i16", "layered", "cuda_layered", "cuda_qc")
+# the sum-product family: float32 true channel LLRs, no alpha
+SP_IMPLS = ("sp", "sp_layered", "cuda_sp")
+IMPLS = ("auto", "ref", "qc", "qc_i8", "qc_i16", "layered", "cuda_layered", "cuda_qc",
+         *SP_IMPLS)
 
-# implementations of the JAX package that this port does not have yet, or
-# has under another name
+# implementations of the JAX package that this port has under another name
 _LATER = {
     "pallas_qc": "is the TPU kernel; its CUDA port is impl='cuda_qc'",
     "pallas_layered": "is the TPU kernel; its CUDA port is impl='cuda_layered'",
-    "sp": "sum-product comes with ROADMAP Queue A9",
-    "sp_layered": "layered sum-product comes with ROADMAP Queue A9 (kernel B7)",
-    "sp_pallas": "the sum-product kernel comes with ROADMAP Queue B7",
+    "sp_pallas": "is the TPU kernel; its CUDA port is impl='cuda_sp'",
 }
 
 
@@ -80,10 +89,12 @@ def resolve_impl(code, dtype, impl: str, device="cuda") -> str:
     "auto" takes float32, int8 and int16 LLRs to the hand-written layered
     CUDA kernel on a CUDA device and to the plain PyTorch layered decoder on
     the CPU, and int32 to the reference-order decoder (as the JAX package,
-    awgn.py:63-67). Concrete names pass through after the same checks, so
-    callers can key caches on the resolved name.
+    awgn.py:63-67); it never picks sum-product. Concrete names pass through
+    after the same checks, so callers can key caches on the resolved name.
     """
     get_code(code)
+    if impl in SP_IMPLS and dtype != torch.float32:
+        raise ValueError(f"impl {impl!r} supports float32 only")
     check_dtype(dtype, DTYPES)
     if impl in _LATER:
         raise ValueError(f"impl {impl!r} is not in this port: {impl} {_LATER[impl]}")
@@ -99,8 +110,14 @@ def resolve_impl(code, dtype, impl: str, device="cuda") -> str:
 def _make_decoder(code, dtype, maxiters, alpha, impl: str, device="cuda"):
     """Build the decoder of a (resolved or "auto") impl for `dtype` LLRs on
     `device`; the dtype and alpha rules follow the JAX package's registry
-    (awgn.py:106-156). Returns fn(llrs: (B, n)) -> MSResult."""
+    (awgn.py:106-183). Returns fn(llrs: (B, n)) -> MSResult."""
     impl = resolve_impl(code, dtype, impl, device)
+    if impl in SP_IMPLS:
+        if alpha is not None:
+            raise ValueError(f"impl {impl!r} does not take alpha")
+        if impl == "sp":
+            return make_sp_decoder(code, maxiters, device=device)
+        return make_sp_decoder_cuda(code, maxiters, device=device)
     if impl == "ref":
         if alpha is not None and dtype in INT_DTYPES:
             raise ValueError("normalized min-sum (alpha) requires float32 LLRs")
@@ -245,6 +262,16 @@ def _awgn_llrs(cw_bits: torch.Tensor, noise: torch.Tensor, sigma, dtype: torch.d
     return soft.to(dtype)
 
 
+def _awgn_true_llrs(cw_bits: torch.Tensor, noise: torch.Tensor, sigma) -> torch.Tensor:
+    """The AWGN channel's true LLRs 2y/sigma^2 in float32, as the JAX package
+    computes them (awgn.py:344-348): sigma*sigma, then 2 divided by it, then
+    the product. (`2.0 / tensor` would multiply by a reciprocal instead.)"""
+    soft = _awgn(cw_bits, noise, sigma)
+    s = torch.as_tensor(sigma, dtype=torch.float32, device=soft.device)
+    two = torch.tensor(2.0, dtype=torch.float32, device=soft.device)
+    return soft * torch.div(two, s * s)
+
+
 def make_trial_step(
     code: LDPCCode | str,
     batch: int,
@@ -257,10 +284,11 @@ def make_trial_step(
 ) -> TrialStep:
     """Soft-channel trial step: fn(gen, sigma) -> ChannelStats over `batch`
     codewords: random data -> encode -> BPSK +-1 -> AWGN(sigma) -> LLRs in
-    `dtype_name` -> min-sum -> counters, on `device`. float32 LLRs stay
-    unscaled (the reference's convention; min-sum is scale-invariant); int8
-    and int16 are quantized with `quantize_llrs` at `llr_scale` (default
-    `default_llr_scale`), which no other dtype takes."""
+    `dtype_name` -> decode -> counters, on `device`. float32 LLRs stay
+    unscaled for min-sum (the reference's convention; min-sum is
+    scale-invariant) and become true LLRs 2y/sigma^2 for the sum-product
+    impls (`SP_IMPLS`); int8 and int16 are quantized with `quantize_llrs` at
+    `llr_scale` (default `default_llr_scale`), which no other dtype takes."""
     code = get_code(code)
     dev = resolve_device(device)
     dtype = _dtype_from_name(dtype_name)
@@ -268,7 +296,9 @@ def make_trial_step(
     if llr_scale is not None and dtype not in SAT_DTYPES:
         raise ValueError(f"llr_scale quantizes int8/int16 LLRs; dtype {dtype_name} takes none")
     decoder = _make_decoder(code, dtype, maxiters, alpha, impl, dev)
-    if dtype == torch.float32:
+    if impl in SP_IMPLS:
+        channel = _awgn_true_llrs
+    elif dtype == torch.float32:
         channel = _awgn
     else:
         channel = partial(_awgn_llrs, dtype=dtype, llr_scale=llr_scale)

@@ -21,7 +21,9 @@ import torch
 
 from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
-from .awgn import ChannelStats, TrialStep, _awgn, _bpsk, _count_stats, _make_decoder, resolve_impl
+from .awgn import (
+    SP_IMPLS, ChannelStats, TrialStep, _awgn, _bpsk, _count_stats, _make_decoder, resolve_impl,
+)
 
 __all__ = ["ChannelStats", "make_bf_trial_step", "make_ms_hard_trial_step", "resolve_bf_impl"]
 
@@ -112,11 +114,22 @@ def make_ms_hard_trial_step(
     """Min-sum driven by hard channel output: the hard bits enter as +-1
     LLRs (the decode_ms side of the reference's bit-flip vs min-sum
     framing, src/lib.rs:160-172). Same channels and `param` as
-    `make_bf_trial_step`, except "bec"."""
+    `make_bf_trial_step`, except "bec".
+
+    The sum-product impls are refused: BP is not scale-invariant, and fixed
+    +-1 LLRs instead of the hard channel's true LLRs would give biased
+    curves (the JAX package computes them silently,
+    labrador_ldpc_tpu/channel/hard.py:200)."""
     code = get_code(code)
     dev = resolve_device(device)
     noise = _noise_kind(channel, ("bsc", "perftest", "ebn0"))
     impl = resolve_impl(code, torch.float32, impl, dev)
+    if impl in SP_IMPLS:
+        raise ValueError(
+            f"impl {impl!r} (sum-product) needs true channel LLRs; the hard-input min-sum "
+            "surface feeds fixed +-1 LLRs: use a min-sum impl, or impl "
+            f"{impl!r} with decoder='ms' (the soft channel)"
+        )
     decoder = _make_decoder(code, torch.float32, maxiters, None, impl, dev)
 
     def llrs(cw_bits, n, param):

@@ -222,7 +222,8 @@ def test_bf_ber_anchor_bsc():
         (lambda: make_trial_step("TC128", 8, dtype_name="int32", impl="layered", device="cpu"),
          "impl='ref'"),
         (lambda: make_trial_step("TC128", 8, llr_scale=16.0, device="cpu"), "llr_scale"),
-        (lambda: make_trial_step("TC128", 8, impl="sp_layered", device="cpu"), "Queue A9"),
+        (lambda: make_ms_hard_trial_step("TC128", 8, impl="sp_layered", device="cpu"),
+         "true channel LLRs"),
         (lambda: make_trial_step("TC128", 8, impl="qc_i16", device="cpu"), "requires dtype"),
         (lambda: make_trial_step("TC128", 8, dtype_name="bfloat16", impl="cuda_qc", device="cpu"),
          "Queue A5"),

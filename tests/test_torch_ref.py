@@ -205,7 +205,7 @@ def test_registry_auto_table():
      ("cuda_layered", torch.int8, 0.8, "alpha"),
      ("ref", torch.int16, 0.8, "alpha"),
      ("auto", torch.float64, None, "Queue A5"),
-     ("sp", torch.float32, None, "Queue A9")],
+     ("sp", torch.float32, 0.8, "does not take alpha")],
 )
 def test_registry_errors(impl, dtype, alpha, match):
     with pytest.raises(ValueError, match=match):

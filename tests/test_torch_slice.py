@@ -106,7 +106,7 @@ def test_auto_resolves_per_device():
         ("layered", torch.int32, "impl='ref'"),
         ("pallas_qc", torch.int8, "cuda_qc"),
         ("pallas_layered", torch.float32, "cuda_layered"),
-        ("sp_layered", torch.float32, "Queue A9"),
+        ("sp_pallas", torch.float32, "impl='cuda_sp'"),
         ("bogus", torch.float32, "unknown decoder impl"),
     ],
 )
@@ -134,6 +134,9 @@ ENTRY_POINTS = {
     "make_bf_decoder": lambda: T.make_bf_decoder("TC128"),
     "make_bf_decoder_qc": lambda: T.make_bf_decoder_qc("TC128"),
     "make_bf_decoder_cuda": lambda: T.make_bf_decoder_cuda("TC128"),
+    "make_sp_decoder": lambda: T.make_sp_decoder("TC128"),
+    "make_sp_decoder_layered": lambda: T.make_sp_decoder_layered("TC128"),
+    "make_sp_decoder_cuda": lambda: T.make_sp_decoder_cuda("TC128"),
     "waterfall": lambda: T.waterfall("TC128", [0.01], decoder="bf", noise_model="bsc"),
     "make_trial_step": lambda: make_trial_step("TC128", 8),
     "make_bf_trial_step": lambda: make_bf_trial_step("TC128", 8),
