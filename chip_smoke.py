@@ -17,14 +17,16 @@ JAX package, and reads the CCSDS golden parity from tests/golden_vectors.py
   5. the main path: 8 serving batches of TM8192, B=16384, 3 flipped bits in
      byte 0, maxiters=50, through encode -> hard_to_llrs -> decode_ms
      (impl="auto"), every frame's data verified; then one int8 serving batch
-     (the same LLRs through quantize_llrs) through decode_ms(impl="auto"),
-     the int8 form of the layered kernel; launch counts are reset just
-     before and read just after each;
+     (the same LLRs through quantize_llrs) and one bfloat16 serving batch
+     (the same LLRs cast) through decode_ms(impl="auto"), the int8 and bf16
+     forms of the layered kernel, each exactly one launch; launch counts are
+     reset just before and read just after each;
   6. TM8192 at 1.0 dB, B=256, maxiters=50 (deep iterations and failures):
      kernel against plain version, bit for bit;
   7. times (CUDA events) of each kernel form and of its plain version at
      its path's shapes, and each one's bound: the layered kernel (float32,
-     int8, int16) and the flooding kernel (float32, int8, int16) at TM8192,
+     int8, int16, bf16) and the flooding kernel (float32, bf16, int8, int16)
+     at TM8192,
      B=16384, maxiters=50 on the 3-flip batch of phase 5, the flooding
      float32 form also at Eb/N0 1.1 dB, every form at TM1536, the
      bit-flip kernel at TM8192, B=16384, maxiters=50 on the 3-flip batch
@@ -41,17 +43,20 @@ JAX package, and reads the CCSDS golden parity from tests/golden_vectors.py
      TM8192, batch 8192, one batch per point: bit-flip over Eb/N0 6.5 dB,
      BSC 0.006 and BEC 0.012, soft min-sum at 1.0 dB, and the quantized-LLR
      points at Eb/N0 1.1 dB, maxiters 100 (layered "auto" in int8 and
-     int16, flooding "cuda_qc" in int8, int16 and float32); each point's
-     frame errors within a factor 2 of the stored curve or anchor
+     int16, flooding "cuda_qc" in int8, int16 and float32; bf16 "auto" and
+     "cuda_qc", each beside the card's float32 count on the same draws);
+     each point's frame errors (bit errors against the stored layered f32
+     curve) within a factor 2 of the stored curve or anchor
      (benchmarks/results); launch counts are reset just before and read
      just after each point; then the stage times (CUDA events) of one
      bit-flip, one float32 and one int8 min-sum batch;
- 10. the int8/int16 forms of the layered kernel against their plain version
-     on the card, all nine codes: batches where some frames fail and some
-     converge, with full-range random LLRs in each, clean batches, maxiters
-     0 and 1, B=257 and B=1, and once against the plain version on the CPU;
- 11. the same for the flooding kernel in float32 (and alpha=0.8), int8 and
-     int16;
+ 10. the int8/int16/bf16 forms of the layered kernel against their plain
+     version on the card, all nine codes: batches where some frames fail and
+     some converge, with full-range random LLRs in each int batch, clean
+     batches, maxiters 0 and 1, B=257 and B=1, and once against the plain
+     version on the CPU; bf16 also with alpha=0.8;
+ 11. the same for the flooding kernel in float32 and bf16 (each also with
+     alpha=0.8), int8 and int16;
  12. the layered sum-product kernel against its plain version on the card,
      all nine codes (B=256, maxiters 20, true LLRs where some frames fail and
      some converge), clean batches, maxiters 0 and 1, B=257 and B=1: identical
@@ -64,7 +69,13 @@ JAX package, and reads the CCSDS golden parity from tests/golden_vectors.py
      impl="sp_layered" (the kernel) at TM8192 0.9 dB and impl="sp" (flooding
      BP, plain PyTorch on the card) at TM2048 1.3 dB, each within a factor 2
      of its stored anchor, with the launch counters reset around each point;
-     then the stage times of one sp_layered batch.
+     then the stage times of one sp_layered batch;
+ 14. the two-stage decoder, make_two_stage_decoder with its defaults (bf16
+     layered kernel, 25 iterations; float32 flooding kernel, 100, on the
+     failed frames only) on a TM8192 batch of 8192 at Eb/N0 1.1 dB: equal
+     to the two stages composed by hand on the card, one launch of the bf16
+     layered form and one of the f32 flooding form only if a frame failed,
+     and every converged frame's data bits those sent.
 Then one JSON line `{"kernels": [...]}`; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -110,6 +121,13 @@ OPS_PER_EDGE_ITER_SAT = 23
 # sign 2); the int forms add two clamps (2 each) and the saturating abs (1)
 FLOOD_OPS_PER_EDGE_ITER = 34
 FLOOD_OPS_PER_EDGE_ITER_SAT = 39
+# the bf16 forms count the float32 operations plus each conversion between
+# bfloat16 and float32 as one: layered 6 loads/stores of u, t' and 6 in the
+# roundings of |t| and of the posterior update (bf16(va + bf16(d))); flooding
+# 5 loads/stores of v, m1, m2, g and 7 in the roundings of u, the posterior
+# and |nv|
+OPS_PER_EDGE_ITER_BF16 = 32
+FLOOD_OPS_PER_EDGE_ITER_BF16 = 46
 BF_OPS_PER_EDGE_ITER = 10
 BF_OPS_PER_VAR_ITER = 3
 BF_OPS_ERASURE_PER_EDGE = 5
@@ -152,6 +170,14 @@ INT_WATERFALL_POINTS = (
     ("cuda_qc", "int8", "ber_regression_points_i8_flooding.csv"),
     ("cuda_qc", "int16", "ber_regression_points_i16_flooding.csv"),
     ("cuda_qc", "float32", "ber_regression_points.csv"),
+)
+# the bf16 slice's points: TM8192, Eb/N0 1.1 dB, maxiters 100, batch 8192;
+# no bf16 anchor is stored, so each is held to the stored float32 record of
+# its schedule: (impl, kernel form, file, column of the count, count name)
+BF16_WATERFALL_POINTS = (
+    ("auto", "layered_minsum_bf16", "waterfall_tm8192_ebn0_pallas_layered_f32.csv", 4,
+     "bit_errors"),
+    ("cuda_qc", "flooding_minsum_bf16", "ber_regression_points.csv", 7, "frame_errors"),
 )
 BAND = 2.0  # observed/stored frame errors in [1/BAND, BAND] (tests/test_ber_regression.py)
 
@@ -198,7 +224,7 @@ def main() -> None:
     cuda_qc._lib()
     cuda_bf._lib()
     cuda_sp._lib()
-    forms = cuda_layered.FORMS  # dtype -> "f32" | "i8" | "i16"
+    forms = cuda_layered.FORMS  # dtype -> "f32" | "bf16" | "i8" | "i16"
 
     def reset_launches():
         for mod in (cuda_layered, cuda_qc, cuda_bf, cuda_sp):
@@ -206,6 +232,12 @@ def main() -> None:
         for mod in (cuda_layered, cuda_qc):
             for form in mod.form_launches:
                 mod.form_launches[form] = 0
+
+    def minsum_launches() -> dict[str, int]:
+        """Launches of each min-sum kernel form since the last reset."""
+        out = {f"layered_minsum_{f}": n for f, n in cuda_layered.form_launches.items()}
+        out.update({f"flooding_minsum_{f}": n for f, n in cuda_qc.form_launches.items()})
+        return out
 
     # ---- 2. card ------------------------------------------------------------
     phase("2 card")
@@ -381,6 +413,28 @@ def main() -> None:
     if int8_serving_launches < 1:
         fail("the int8 serving batch did not launch the int8 form of the layered kernel")
 
+    # the same batch as bfloat16 LLRs: the bf16 form of the layered kernel
+    if T.resolve_impl(code, torch.bfloat16, "auto") != "cuda_layered":
+        fail("impl='auto' does not resolve bf16 LLRs to the CUDA kernel on the card")
+    llrs_bf16 = T.hard_to_llrs(cw, torch.float32).to(torch.bfloat16)
+    T.decode_ms(code, llrs_bf16[:8], maxiters=maxiters)  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = T.decode_ms(code, llrs_bf16, maxiters=maxiters, impl="auto")
+    ok = bool(res.success.all()) and torch.equal(T.pack_bits(res.bits[:, : code.k]), data)
+    wall = time.perf_counter() - t0
+    bf16_serving_launches = cuda_layered.form_launches["bf16"]
+    print(f"  bf16 serving batch: {B} frames verified in {wall:.4f} s; mean iteration of "
+          f"convergence {res.iterations.float().mean().item():.3f}; launches of "
+          f"layered_minsum_bf16: {bf16_serving_launches}, of any kernel: "
+          f"{cuda_layered.launches + cuda_qc.launches + cuda_bf.launches + cuda_sp.launches}")
+    if not ok:
+        fail("a bf16 serving frame did not decode to the data sent")
+    if bf16_serving_launches != 1 or cuda_layered.launches != 1 or \
+            cuda_qc.launches + cuda_bf.launches + cuda_sp.launches:
+        fail("the bf16 serving batch did not run on exactly one launch of layered_minsum_bf16")
+
     # ---- 6. deep iterations -----------------------------------------------------
     phase("6 TM8192 at 1.0 dB, B=256, maxiters=50")
     got = hold("TM8192 1.0 dB", code, noisy_llrs(code, 256, 1.0, seed=3), 50)
@@ -402,10 +456,11 @@ def main() -> None:
         return start.elapsed_time(end) / reps, out
 
     def ops_per_edge_iter(kind, dtype):
-        sat = dtype != torch.float32
         if kind == "layered":
-            return OPS_PER_EDGE_ITER_SAT if sat else OPS_PER_EDGE_ITER
-        return FLOOD_OPS_PER_EDGE_ITER_SAT if sat else FLOOD_OPS_PER_EDGE_ITER
+            return {torch.float32: OPS_PER_EDGE_ITER,
+                    torch.bfloat16: OPS_PER_EDGE_ITER_BF16}.get(dtype, OPS_PER_EDGE_ITER_SAT)
+        return {torch.float32: FLOOD_OPS_PER_EDGE_ITER,
+                torch.bfloat16: FLOOD_OPS_PER_EDGE_ITER_BF16}.get(dtype, FLOOD_OPS_PER_EDGE_ITER_SAT)
 
     def measure(kind, c, llrs, label, kern_reps=10, plain_reps=2, all_converge=True):
         """Kernel and plain version in turns (plain, kernel, kernel, plain)
@@ -451,7 +506,7 @@ def main() -> None:
         cw = T.encode(c, torch.from_numpy(data_np).to(dev))
         cw[:, 0] ^= FLIPS
         llrs = T.hard_to_llrs(cw, torch.float32)
-        return llrs if dtype == torch.float32 else T.quantize_llrs(llrs, dtype)
+        return T.quantize_llrs(llrs, dtype) if dtype in (torch.int8, torch.int16) else llrs.to(dtype)
 
     # the main path: TM8192, the TPU kernel B1's shape
     rows = {"layered_minsum_f32": measure("layered", code, three_flip_llrs(code, batches[0]),
@@ -461,18 +516,18 @@ def main() -> None:
     measure("layered", c, three_flip_llrs(
         c, np.random.default_rng(1).integers(0, 256, (B, c.k // 8), dtype=np.uint8)),
         f"{c} layered f32")
-    # the quantized-LLR forms and the flooding kernel (B3's shape) on the same
-    # 3-flip batch, quantized with the default scales
-    for family, dtypes in (("layered", (torch.int8, torch.int16)),
-                           ("flooding", (torch.float32, torch.int8, torch.int16))):
+    # the quantized-LLR and bf16 forms and the flooding kernel (B3's shape) on
+    # the same 3-flip batch, quantized with the default scales or cast
+    families = (("layered", (torch.int8, torch.int16, torch.bfloat16)),
+                ("flooding", (torch.float32, torch.bfloat16, torch.int8, torch.int16)))
+    for family, dtypes in families:
         for dt in dtypes:
             rows[f"{family}_minsum_{forms[dt]}"] = measure(
                 family, code, three_flip_llrs(code, batches[0], dt), f"{code} {family} {forms[dt]}")
     # every new form at TM1536 too: an M <= 256 code, the shape of B2 and B4
     c = T.get_code("TM1536")
     data_b2 = np.random.default_rng(1).integers(0, 256, (B, c.k // 8), dtype=np.uint8)
-    for family, dtypes in (("layered", (torch.int8, torch.int16)),
-                           ("flooding", (torch.float32, torch.int8, torch.int16))):
+    for family, dtypes in families:
         for dt in dtypes:
             measure(family, c, three_flip_llrs(c, data_b2, dt), f"{c} {family} {forms[dt]}")
     # flooding float32 where it works hard: Eb/N0 1.1 dB (the waterfall point)
@@ -679,8 +734,7 @@ def main() -> None:
         (pt,) = T.waterfall(code, [1.1], batch=8192, maxiters=100, max_bits=1,
                             max_bit_errors=10**9, noise_model="ebn0", dtype_name=dtype_name,
                             impl=impl, seed=0)
-        point_launches = {f"layered_minsum_{f}": n for f, n in cuda_layered.form_launches.items()}
-        point_launches.update({f"flooding_minsum_{f}": n for f, n in cuda_qc.form_launches.items()})
+        point_launches = minsum_launches()
         want_kernel = ("layered" if impl == "auto" else "flooding") + "_minsum_" + \
             forms[getattr(torch, dtype_name)]
         want = stored_frame_errors(fname, 1.1, pt.trials, column=7)
@@ -697,6 +751,39 @@ def main() -> None:
             fail(f"{impl} {dtype_name}: the waterfall did not run on {want_kernel} alone")
         for name, n in point_launches.items():
             int_launches[name] += n
+
+    # the bf16 slice: bf16 "auto" (the layered kernel's bf16 form) and
+    # "cuda_qc" (the flooding kernel's) at 1.1 dB, each beside float32 on the
+    # same draws (the waterfall's generators depend on the seed and the batch
+    # index only) and held to the stored float32 record of its schedule
+    bf16_launches = {}
+    for impl, kernel_form, fname, column, count in BF16_WATERFALL_POINTS:
+        pts = {}
+        for dtype_name in ("float32", "bfloat16"):
+            torch.cuda.synchronize()
+            reset_launches()
+            (pts[dtype_name],) = T.waterfall(code, [1.1], batch=8192, maxiters=100, max_bits=1,
+                                             max_bit_errors=10**9, noise_model="ebn0",
+                                             dtype_name=dtype_name, impl=impl, seed=0)
+            if dtype_name == "bfloat16":
+                point_launches = minsum_launches()
+        pt, pt32 = pts["bfloat16"], pts["float32"]
+        want = stored_frame_errors(fname, 1.1, pt.trials, column=column)
+        got, got32 = getattr(pt, count), getattr(pt32, count)
+        print(f"  {impl:7s} bfloat16 maxiters=100: {pt.csv()}  {count} {got} vs stored float32 "
+              f"{want:.0f} ({fname}); the card's float32 on the same draws {got32} (bf16/f32 "
+              f"{got / got32:.4f}); frame errors {pt.frame_errors} (f32 {pt32.frame_errors}); "
+              f"decode failures {pt.decode_failures}; mean iterations "
+              f"{pt.iterations / pt.trials:.2f} (f32 {pt32.iterations / pt32.trials:.2f}); "
+              f"{pt.trials / pt.elapsed_s:.1f} cw/s end to end (f32 "
+              f"{pt32.trials / pt32.elapsed_s:.1f}); launches "
+              f"{dict((k, v) for k, v in point_launches.items() if v)}")
+        if pt.trials != 8192 or not want / BAND <= got <= want * BAND:
+            fail(f"{impl} bfloat16 1.1 dB: {got} {count}, outside a factor {BAND} of the stored "
+                 f"float32 {want:.0f}")
+        if point_launches[kernel_form] != 1 or sum(point_launches.values()) != 1:
+            fail(f"{impl} bfloat16: the waterfall did not run on one launch of {kernel_form}")
+        bf16_launches[kernel_form] = point_launches[kernel_form]
 
     def stage_times(label, step, param):
         """Where one batch's time goes: the trial step's stages, CUDA events."""
@@ -727,10 +814,11 @@ def main() -> None:
 
     # ---- 10, 11. the int forms of the layered kernel, the flooding kernel --------
     def quantized(llrs, dtype, seed, full_range=True):
-        """llrs as `dtype`: float32 as they are, ints through quantize_llrs
-        with an eighth of the rows uniform over the whole int range."""
-        if dtype == torch.float32:
-            return llrs
+        """llrs as `dtype`: float32 as they are, bf16 cast, ints through
+        quantize_llrs with an eighth of the rows uniform over the whole int
+        range."""
+        if dtype not in (torch.int8, torch.int16):
+            return llrs.to(dtype)
         q = T.quantize_llrs(llrs, dtype)
         info = torch.iinfo(dtype)
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -780,17 +868,26 @@ def main() -> None:
                      "the CPU")
             print(f"  TM1536 {kind} {forms[dt]} kernel on the card == plain version on the CPU")
 
-    phase("10 layered kernel, int8/int16 forms, vs plain version on the card")
-    print("  tolerance: exact (integer arithmetic); max|diff| must be 0")
-    corners("layered", (torch.int8, torch.int16))
+    def bf16_alpha(kind):
+        for name in ("TM8192", "TC256"):
+            c = T.get_code(name)
+            hold(f"{name} {kind} bf16 alpha=0.8", c, mixed(c, 256, 7).to(torch.bfloat16), 20, 0.8,
+                 kind=kind)
+
+    phase("10 layered kernel, int8/int16/bf16 forms, vs plain version on the card")
+    print("  tolerance: exact (integer arithmetic; bf16: the same float32 operations and "
+          "bfloat16 roundings in the same order); max|diff| must be 0")
+    corners("layered", (torch.int8, torch.int16, torch.bfloat16))
+    bf16_alpha("layered")
 
     phase("11 flooding kernel vs plain version on the card")
-    print("  tolerance: exact (the same float32 operations in the same order; integer "
-          "arithmetic); max|diff| must be 0")
-    corners("flooding", (torch.float32, torch.int8, torch.int16))
+    print("  tolerance: exact (the same float32 operations and bfloat16 roundings in the same "
+          "order; integer arithmetic); max|diff| must be 0")
+    corners("flooding", (torch.float32, torch.bfloat16, torch.int8, torch.int16))
     for name in ("TM8192", "TC256"):
         c = T.get_code(name)
         hold(f"{name} flooding f32 alpha=0.8", c, mixed(c, 256, 7), 20, 0.8, kind="flooding")
+    bf16_alpha("flooding")
 
     # ---- 12. the sum-product kernel ------------------------------------------------
     phase("12 layered sum-product kernel vs plain version on the card")
@@ -899,6 +996,57 @@ def main() -> None:
             sp_launches = point_launches["sumproduct_f32"]
     stage_times("sp_layered ebn0 0.9 dB", make_trial_step(code, 8192, 100, impl="sp_layered"),
                 T.noise_sigma(0.9, code, "ebn0"))
+
+    # ---- 14. the two-stage decoder ---------------------------------------------------
+    phase("14 two-stage decoder (defaults): TM8192, Eb/N0 1.1 dB, batch 8192")
+    g = torch.Generator(device=dev).manual_seed(140)
+    data = torch.randint(0, 2, (8192, code.k), generator=g, device=dev, dtype=torch.uint8)
+    sigma = T.noise_sigma(1.1, code, "ebn0")
+    x = 1.0 - 2.0 * T.encode_bits(code, data).to(torch.float32) + \
+        sigma * torch.randn((8192, code.n), generator=g, device=dev)
+    two = T.make_two_stage_decoder(code)
+    two(x[:8])  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = two(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    two_launches = {k: v for k, v in minsum_launches().items() if v}
+    # the stages composed by hand on the card: bf16 layered 25, then float32
+    # flooding 100 on the original LLRs of the frames the fast pass failed
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    fast = cuda_layered.layered_minsum(code, x.to(torch.bfloat16), 25)
+    ev[1].record()
+    bad = torch.nonzero(~fast.success.cpu()).squeeze(1).to(dev)
+    resc = cuda_qc.flooding_minsum(code, x.index_select(0, bad), 100)
+    ev[2].record()
+    torch.cuda.synchronize()
+    want = T.MSResult(
+        success=fast.success.index_copy(0, bad, resc.success),
+        iterations=fast.iterations.index_copy(0, bad, fast.iterations[bad] + resc.iterations),
+        bits=fast.bits.index_copy(0, bad, resc.bits),
+    )
+    err = max_diff(res, want)
+    n_bad, n_rescued = int(bad.numel()), int(resc.success.sum())
+    wrong = int((res.success & (res.bits[:, : code.k] != data).any(dim=1)).sum())
+    print(f"  fast pass (layered bf16, 25 iterations): {8192 - n_bad} of 8192 converged "
+          f"({ev[0].elapsed_time(ev[1]):.4f} ms, CUDA events); rescue batch {n_bad} frames "
+          f"(flooding f32, 100 iterations): {n_rescued} converged "
+          f"({ev[1].elapsed_time(ev[2]):.4f} ms with the host's success-mask read); "
+          f"{8192 - int(res.success.sum())} still failing; converged frames with wrong data "
+          f"bits: {wrong}")
+    print(f"  two-stage decode {wall * 1e3:.3f} ms (host clock); mean iterations "
+          f"{res.iterations.float().mean().item():.3f}; max|diff| against the stages composed "
+          f"by hand {err}; launches {two_launches}")
+    if err != 0:
+        fail("the two-stage decoder differs from its stages composed by hand")
+    if two_launches != ({"layered_minsum_bf16": 1, "flooding_minsum_f32": 1} if n_bad
+                        else {"layered_minsum_bf16": 1}):
+        fail("the two-stage decoder did not run on one bf16 layered and one f32 flooding launch")
+    if wrong:
+        fail("a frame the two-stage decoder reports converged does not carry the data sent")
     print(f"  {smi}")
 
     def entry(name, replaces, also, launches, row, max_abs_err):
@@ -926,6 +1074,10 @@ def main() -> None:
                  "flooding_minsum_i8", "flooding_minsum_i16"):
         tpu = layered_tpu if name.startswith("layered") else flooding_tpu
         table.append(entry(name, *tpu, int_launches[name], rows[name], errs[name]))
+    table.append(entry("layered_minsum_bf16", *layered_tpu, bf16_serving_launches,
+                       rows["layered_minsum_bf16"], errs["layered_minsum_bf16"]))
+    table.append(entry("flooding_minsum_bf16", *flooding_tpu, bf16_launches["flooding_minsum_bf16"],
+                       rows["flooding_minsum_bf16"], errs["flooding_minsum_bf16"]))
     table.append(entry("bitflip_u8", "pallas_bf.py:53", "pallas_tc.py:741",
                        slice_launches["bitflip_u8"], bf_row, bf_max_err))
     table.append(entry("sumproduct_f32", "pallas_sp.py:48", None, sp_launches, sp_row, sp_max_err))

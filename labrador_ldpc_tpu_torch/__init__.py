@@ -4,8 +4,10 @@ The same CCSDS LDPC codec for one NVIDIA H100, beside the JAX package (which
 stays the reference and is never imported from here). So far it carries the
 nine code tables, the converters, the batched GF(2) encoder, the row-layered
 (csrc/layered_minsum.cu) and flooding (csrc/flooding_minsum.cu)
-self-corrected min-sum decoders in float32 and saturating int8/int16, the
-reference-order decoder (float32, int8, int16, int32), the LLR quantizer, the
+self-corrected min-sum decoders in float32, bfloat16 (the kernels' bf16
+storage form), float64 (plain PyTorch) and saturating int8/int16, the
+two-stage decoder (layered fast pass, flooding rescue), the reference-order
+decoder (every dtype), the LLR quantizer, the
 Gallager bit-flip and erasure decoders (csrc/bitflip.cu), the sum-product
 decoders (flooding, and row-layered with csrc/sumproduct.cu), the AWGN, BSC
 and BEC trial steps and the BER/FER waterfall (also `python -m
@@ -22,6 +24,8 @@ Entry points run on CUDA unless the caller passes device="cpu"::
     res  = ldpc.decode_ms(code, llrs, maxiters=50)    # the layered CUDA kernel
     q    = ldpc.quantize_llrs(soft, torch.int8)       # 8-bit soft bits, scale 16
     res  = ldpc.decode_ms(code, q, impl="cuda_qc")    # the flooding CUDA kernel
+    res  = ldpc.decode_ms(code, llrs.to(torch.bfloat16))  # the kernel's bf16 form
+    res  = ldpc.make_two_stage_decoder(code)(llrs)    # bf16 layered + f32 flooding
     res  = ldpc.decode_bf(code, ldpc.unpack_bits(cw)) # the bit-flip CUDA kernel
     data = ldpc.pack_bits(res.bits[:, :code.k])
     pts  = ldpc.waterfall(code, [0.006], batch=8192, noise_model="bsc", decoder="bf")
@@ -36,7 +40,12 @@ from .codes.expand import (
     parity_edges,
     qc_structure,
 )
-from .channel.awgn import default_llr_scale, quantize_llrs, resolve_impl
+from .channel.awgn import (
+    default_llr_scale,
+    make_two_stage_decoder,
+    quantize_llrs,
+    resolve_impl,
+)
 from .device import resolve_device
 from .ops.convert import hard_to_llrs, llrs_to_hard, pack_bits, unpack_bits
 from .ops.encoder import encode, encode_bits, encode_onto, make_encoder
@@ -72,7 +81,8 @@ __all__ = [
     "encode", "encode_bits", "encode_onto", "make_encoder",
     "decode_ms", "MSResult", "make_ms_decoder", "make_ms_decoder_layered",
     "make_ms_decoder_cuda_layered", "make_ms_decoder_qc", "make_ms_decoder_qc_int",
-    "make_ms_decoder_qc_i8", "make_ms_decoder_cuda_qc", "quantize_llrs", "default_llr_scale",
+    "make_ms_decoder_qc_i8", "make_ms_decoder_cuda_qc", "make_two_stage_decoder",
+    "quantize_llrs", "default_llr_scale",
     "decode_bf", "BFResult", "decode_erasures_bits", "decode_erasures_mask",
     "make_bf_decoder", "make_bf_decoder_qc", "make_bf_decoder_cuda",
     "make_sp_decoder", "make_sp_decoder_layered", "make_sp_decoder_cuda",

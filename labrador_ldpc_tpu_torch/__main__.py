@@ -9,6 +9,8 @@ names and a `--device` flag (default cuda):
         --noise-model ebn0 --dtype int8 --impl cuda_qc
     python -m labrador_ldpc_tpu_torch waterfall --code TM8192 --snrs 0.9 \\
         --noise-model ebn0 --impl sp_layered
+    python -m labrador_ldpc_tpu_torch waterfall --code TM8192 --snrs 1.1 \\
+        --noise-model ebn0 --dtype bfloat16
     python -m labrador_ldpc_tpu_torch info
 
 The CSV schema matches the reference perftest (`code,snr,trials,bits,errors,
@@ -57,11 +59,10 @@ def _cmd_waterfall(args) -> int:
             )
         if args.alpha is not None:
             raise SystemExit(f"error: --impl {args.impl} (sum-product) takes no --alpha")
-    if args.dtype in ("bfloat16", "float64"):
-        raise SystemExit(
-            f"error: --dtype {args.dtype} is not in this port yet (ROADMAP Queue A5); "
-            "use float32, int8, int16 or int32"
-        )
+    if args.dtype == "float64" and args.impl in ("cuda_layered", "cuda_qc"):
+        raise SystemExit(f"error: --impl {args.impl} takes float32/bfloat16/int8/int16 LLRs, as "
+                         "the TPU kernels do; --dtype float64 takes --impl layered|qc|ref (or "
+                         "auto)")
     if args.decoder == "ms_hard" and args.impl in ("qc_i8", "qc_i16"):
         raise SystemExit(f"error: --decoder ms_hard is float32-only; --impl {args.impl} "
                          "decodes int LLRs")
@@ -152,7 +153,8 @@ def main(argv=None) -> int:
     w.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16", "float64", "int8", "int16", "int32"],
                    help="LLR dtype of --decoder ms; int8/int16 are quantized with "
-                        "--llr-scale (bfloat16/float64: ROADMAP Queue A5)")
+                        "--llr-scale, the others are the float32 LLRs cast (float64 "
+                        "takes --impl layered|qc|ref)")
     w.add_argument("--alpha", type=float, default=None, help="normalized min-sum factor")
     w.add_argument("--impl", choices=sorted(set(MS_IMPLS + BF_IMPLS)),
                    default="auto",

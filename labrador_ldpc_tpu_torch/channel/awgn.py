@@ -1,22 +1,27 @@
-"""Decoder registry, AWGN noise conventions, the LLR quantizer and the soft
-trial step.
+"""Decoder registry, AWGN noise conventions, the LLR quantizer, the soft
+trial step and the two-stage decoder.
 
 PyTorch counterpart of `labrador_ldpc_tpu/channel/awgn.py`. The registry's
 implementations, with the JAX package's names where they differ:
-  * "ref": the reference-order decoder (float32, int8, int16, int32);
-  * "qc": flooding min-sum, plain PyTorch (int8/int16 go to the saturating
-    int form), "qc_i8"/"qc_i16" the int form explicitly;
-  * "layered": row-layered min-sum, plain PyTorch (float32, int8, int16);
+  * "ref": the reference-order decoder (every dtype: float32, bfloat16,
+    float64, int8, int16, int32);
+  * "qc": flooding min-sum, plain PyTorch (float32, bfloat16, float64;
+    int8/int16 go to the saturating int form), "qc_i8"/"qc_i16" the int form
+    explicitly;
+  * "layered": row-layered min-sum, plain PyTorch (float32, bfloat16,
+    float64, int8, int16);
   * "cuda_layered": the layered CUDA kernel (JAX's "pallas_layered");
-  * "cuda_qc": the flooding CUDA kernel (JAX's "pallas_qc");
+  * "cuda_qc": the flooding CUDA kernel (JAX's "pallas_qc"); both kernels
+    take float32, bfloat16, int8 and int16, and refuse float64 as the TPU
+    kernels do;
   * "sp": flooding sum-product, plain PyTorch;
   * "sp_layered": row-layered sum-product, the CUDA kernel on a CUDA device
     and its plain version on the CPU (as JAX's: the fused kernel on the
     accelerator, the twin elsewhere); "cuda_sp" the same kernel by name
     (JAX's "sp_pallas"). float32 only, no alpha; "auto" never picks them.
-A wrapper of a CUDA kernel runs its plain version on a CPU device. The
-bf16/float64 dtypes raise a ValueError that names the queue item still to
-come, instead of failing deep inside a decoder.
+A wrapper of a CUDA kernel runs its plain version on a CPU device. A dtype or
+alpha an impl does not take raises a ValueError here, instead of failing deep
+inside a decoder.
 
 Two noise models (as the JAX package):
   * "perftest": the reference's convention — noise sigma = 10^(-snr/10)
@@ -24,9 +29,10 @@ Two noise models (as the JAX package):
     scale-invariant, decoder.rs:332-335, so the LLRs stay unscaled);
   * "ebn0": BPSK over AWGN at Eb/N0 dB — sigma^2 = 1/(2 R 10^(x/10)).
 int8/int16 trial steps quantize the channel's float32 LLRs with
-`quantize_llrs` (scale `llr_scale`, default `default_llr_scale`); the
-sum-product trial steps scale them to true channel LLRs 2y/sigma^2 (BP is
-not scale-invariant).
+`quantize_llrs` (scale `llr_scale`, default `default_llr_scale`); bfloat16,
+float64 and int32 cast them (as the JAX step's astype); the sum-product trial
+steps scale them to true channel LLRs 2y/sigma^2 (BP is not
+scale-invariant).
 
 A trial step draws its data and noise from an explicit `torch.Generator`
 (`TrialStep.draw`) and hands them to a pure function (`TrialStep.apply`):
@@ -49,8 +55,9 @@ from ..ops.encoder import encode_bits
 from ..ops.cuda_layered import make_ms_decoder_cuda_layered
 from ..ops.cuda_qc import make_ms_decoder_cuda_qc
 from ..ops.cuda_sp import make_sp_decoder_cuda
-from ..ops.minsum import DTYPES, INT_DTYPES, check_dtype, make_ms_decoder
+from ..ops.minsum import DTYPES, INT_DTYPES, MSResult, check_dtype, make_ms_decoder
 from ..ops.qc_minsum import (
+    KERNEL_DTYPES,
     SAT_DTYPES,
     make_ms_decoder_layered,
     make_ms_decoder_qc,
@@ -59,8 +66,8 @@ from ..ops.qc_minsum import (
 from ..ops.sumproduct import make_sp_decoder
 
 __all__ = [
-    "ChannelStats", "TrialStep", "default_llr_scale", "make_trial_step", "noise_sigma",
-    "quantize_llrs", "resolve_impl", "SP_IMPLS",
+    "ChannelStats", "TrialStep", "default_llr_scale", "make_trial_step",
+    "make_two_stage_decoder", "noise_sigma", "quantize_llrs", "resolve_impl", "SP_IMPLS",
 ]
 
 # the sum-product family: float32 true channel LLRs, no alpha
@@ -86,11 +93,13 @@ def _dtype_from_name(name: str) -> torch.dtype:
 def resolve_impl(code, dtype, impl: str, device="cuda") -> str:
     """Resolve impl="auto" to a concrete implementation name.
 
-    "auto" takes float32, int8 and int16 LLRs to the hand-written layered
-    CUDA kernel on a CUDA device and to the plain PyTorch layered decoder on
-    the CPU, and int32 to the reference-order decoder (as the JAX package,
-    awgn.py:63-67); it never picks sum-product. Concrete names pass through
-    after the same checks, so callers can key caches on the resolved name.
+    "auto" takes float32, bfloat16, int8 and int16 LLRs to the hand-written
+    layered CUDA kernel on a CUDA device and to the plain PyTorch layered
+    decoder on the CPU, float64 (which no kernel takes, as Mosaic takes none)
+    to the plain layered decoder on every device, and int32 to the
+    reference-order decoder (as the JAX package, awgn.py:58-67); it never
+    picks sum-product. Concrete names pass through after the same checks, so
+    callers can key caches on the resolved name.
     """
     get_code(code)
     if impl in SP_IMPLS and dtype != torch.float32:
@@ -104,6 +113,8 @@ def resolve_impl(code, dtype, impl: str, device="cuda") -> str:
         return impl
     if dtype == torch.int32:
         return "ref"
+    if dtype == torch.float64:
+        return "layered"
     return "cuda_layered" if resolve_device(device).type == "cuda" else "layered"
 
 
@@ -120,16 +131,20 @@ def _make_decoder(code, dtype, maxiters, alpha, impl: str, device="cuda"):
         return make_sp_decoder_cuda(code, maxiters, device=device)
     if impl == "ref":
         if alpha is not None and dtype in INT_DTYPES:
-            raise ValueError("normalized min-sum (alpha) requires float32 LLRs")
+            raise ValueError("normalized min-sum (alpha) requires float LLRs")
         return make_ms_decoder(code, maxiters, alpha, device=device)
     if impl in ("qc_i8", "qc_i16"):
         want = torch.int8 if impl == "qc_i8" else torch.int16
         if dtype != want:
             raise ValueError(f"impl {impl!r} requires dtype {want}, got {dtype}")
     if dtype == torch.int32:
-        raise ValueError(f"impl {impl!r} takes float32/int8/int16; use impl='ref' for int32")
+        raise ValueError(f"impl {impl!r} takes float and int8/int16 LLRs; use impl='ref' for "
+                         "int32")
+    if impl in ("cuda_layered", "cuda_qc") and dtype not in KERNEL_DTYPES:
+        raise ValueError(f"impl {impl!r} takes float32/bfloat16/int8/int16 LLRs, as the TPU "
+                         "kernels do; float64 goes to impl='layered'|'qc'|'ref'")
     if alpha is not None and dtype in SAT_DTYPES:
-        raise ValueError("the saturating int paths do not support alpha (float32 only)")
+        raise ValueError("the saturating int paths do not support alpha (float only)")
     if impl in ("qc", "qc_i8", "qc_i16"):
         if dtype in SAT_DTYPES:
             return make_ms_decoder_qc_int(code, dtype, maxiters, device=device)
@@ -254,8 +269,9 @@ class TrialStep:
 def _awgn_llrs(cw_bits: torch.Tensor, noise: torch.Tensor, sigma, dtype: torch.dtype,
                llr_scale: float | None) -> torch.Tensor:
     """The AWGN channel's LLRs in the decoder's dtype: quantized for
-    int8/int16, cast (truncated toward zero, as the JAX package's astype) for
-    int32."""
+    int8/int16, cast for the others (rounded to nearest for bfloat16,
+    widened for float64, truncated toward zero for int32, as the JAX
+    package's astype)."""
     soft = _awgn(cw_bits, noise, sigma)
     if dtype in SAT_DTYPES:
         return quantize_llrs(soft, dtype, llr_scale)
@@ -288,7 +304,8 @@ def make_trial_step(
     unscaled for min-sum (the reference's convention; min-sum is
     scale-invariant) and become true LLRs 2y/sigma^2 for the sum-product
     impls (`SP_IMPLS`); int8 and int16 are quantized with `quantize_llrs` at
-    `llr_scale` (default `default_llr_scale`), which no other dtype takes."""
+    `llr_scale` (default `default_llr_scale`), which no other dtype takes;
+    bfloat16, float64 and int32 are the float32 LLRs cast."""
     code = get_code(code)
     dev = resolve_device(device)
     dtype = _dtype_from_name(dtype_name)
@@ -303,3 +320,48 @@ def make_trial_step(
     else:
         channel = partial(_awgn_llrs, dtype=dtype, llr_scale=llr_scale)
     return TrialStep(code, batch, "normal", channel, decoder, impl, dev)
+
+
+def make_two_stage_decoder(
+    code: LDPCCode | str,
+    maxiters_fast: int = 25,
+    maxiters_rescue: int = 100,
+    dtype: torch.dtype = torch.bfloat16,
+    rescue_dtype: torch.dtype = torch.float32,
+    fast_impl: str = "cuda_layered",
+    rescue_impl: str = "cuda_qc",
+    device="cuda",
+):
+    """Two-stage decode: a layered fast pass, then a flooding rescue of the
+    frames it did not converge (JAX package: channel/awgn.py:368-464).
+
+    Stage 1 decodes every frame with `fast_impl` on the LLRs cast to `dtype`;
+    stage 2 re-decodes only the failed frames, gathered on the device from
+    the ORIGINAL LLRs and cast to `rescue_dtype`, with `rescue_impl`. A
+    rescued frame reports the rescue's bits and success, and as iterations
+    the fast pass's plus the rescue's. The one device-to-host transfer is the
+    (B,) success mask of stage 1. The defaults pair the layered kernel's
+    bfloat16 form with the flooding kernel in float32, the pairing the JAX
+    package names for its accelerator; on the CPU their wrappers run the
+    plain versions. Returns fn(llrs: (B, n)) -> MSResult.
+    """
+    code = get_code(code)
+    dev = resolve_device(device)
+    fast = _make_decoder(code, dtype, maxiters_fast, None, fast_impl, dev)
+    rescue = _make_decoder(code, rescue_dtype, maxiters_rescue, None, rescue_impl, dev)
+
+    def decode(llrs) -> MSResult:
+        llrs = torch.as_tensor(llrs, device=dev)
+        res = fast(llrs.to(dtype))
+        success = res.success.cpu()
+        if bool(success.all()):
+            return res
+        idx = torch.nonzero(~success).squeeze(1).to(dev)
+        r2 = rescue(llrs.index_select(0, idx).to(rescue_dtype))
+        return MSResult(
+            success=res.success.index_copy(0, idx, r2.success),
+            iterations=res.iterations.index_copy(0, idx, res.iterations[idx] + r2.iterations),
+            bits=res.bits.index_copy(0, idx, r2.bits),
+        )
+
+    return decode

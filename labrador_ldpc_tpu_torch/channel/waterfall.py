@@ -186,12 +186,14 @@ def waterfall(
     hard-sliced channel output) or "bf" (hard-decision bit-flip). With
     noise_model "bsc"/"bec" the `snrs_db` values are flip/erasure
     probabilities. "ms" takes impl auto|ref|qc|qc_i8|qc_i16|layered|
-    cuda_layered|cuda_qc and `dtype_name` float32|int8|int16|int32 (int8 and
-    int16 quantized with `llr_scale`, default `default_llr_scale`), and the
+    cuda_layered|cuda_qc and `dtype_name` float32|bfloat16|float64|int8|
+    int16|int32 (int8 and int16 quantized with `llr_scale`, default
+    `default_llr_scale`; float64 not on the cuda_* impls), and the
     sum-product impls sp|sp_layered|cuda_sp on float32 true LLRs 2y/sigma^2
     (as the JAX package, sum-product is a decoder="ms" impl); "ms_hard" the
     min-sum impls; "bf" auto|cuda|qc|gather. "auto" is a CUDA kernel on a
-    CUDA device (the reference-order decoder for int32).
+    CUDA device (the plain layered decoder for float64, the reference-order
+    decoder for int32).
 
     Up to `pipeline_depth` trial steps are kept in flight (CUDA launches are
     asynchronous), so the card is not idle between batches. As in the

@@ -1,5 +1,6 @@
 // Flooding self-corrected min-sum LDPC decoder (the reference's schedule) for
-// Hopper (sm_90a), in float32 and in the saturating int8/int16 forms.
+// Hopper (sm_90a), in float32, in the TPU kernels' bfloat16 form and in the
+// saturating int8/int16 forms.
 //
 // Replaces two TPU kernels of the JAX package, both pinned bit-exact to the
 // XLA twins labrador_ldpc_tpu/ops/qc_minsum.py:75 make_ms_decoder_qc (float)
@@ -8,8 +9,14 @@
 //     (lane-major, M >= 512: TM2048/5120/6144/8192), and
 //   * labrador_ldpc_tpu/ops/pallas_tc.py:506 make_ms_decoder_pallas_tc_qc
 //     (node-major, M <= 256: TC128/256/512, TM1280/1536).
-// One kernel template covers all nine codes and the three dtypes through the
+// One kernel template covers all nine codes and the four dtypes through the
 // per-addend QC table of qc_addend.cuh and the arithmetic of minsum_arith.cuh.
+// The bfloat16 form (B3/B4 with bf16 LLRs, pallas_qc.py:405-455,
+// pallas_tc.py:611, 658) stores every state value in bfloat16 and computes
+// in float32: va <- bf16(va + bf16(u)) addend by addend (Ar::post), nv = g - u
+// in float32 with the self-correction against the stored v, the two-min over
+// |bf16(nv)| (Ar::sat_abs), the sign product and parity from the float32
+// values, and v, m1, m2 stored in bfloat16.
 // The plain version, bit for bit the same function, is
 // labrador_ldpc_tpu_torch/ops/qc_minsum.py flooding_minsum_plain.
 //
@@ -17,7 +24,8 @@
 // in dynamic shared memory, in the LLRs' type T: the posteriors va (V), the
 // checks' two smallest |v| m1/m2 (R*M each), the per-addend self-corrected
 // messages v (sumA*M) and the sign products as bytes (R*M). TM8192 takes
-// 219,136 B in float32 (59,392 B in int8, 112,640 B in int16), under the
+// 219,136 B in float32 (59,392 B in int8, 112,640 B in int16 or bfloat16:
+// two CTAs per SM), under the
 // 232,448 B a block can address, so nothing but the input and the result
 // touches device memory. Per iteration:
 //   sweep 1, a thread per variable: va = llr + the u of every addend of the
@@ -80,7 +88,7 @@ __global__ void __launch_bounds__(kMaxThreads) flooding_minsum_kernel(
     const int* __restrict__ col_off,       // (Cc + 1,) first entry of each column in col_edges
     int n, int M, int R, int Cc, int sumA, int maxiters, int use_alpha, float alpha) {
   using Ar = ms::Arith<T>;
-  using A = typename Ar::A;  // float for float32, int for int8/int16
+  using A = typename Ar::A;  // float for float32/bfloat16, int for int8/int16
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int V = Cc * M, RM = R * M;
   T* va = reinterpret_cast<T*>(smem_raw);  // (V,) posteriors of this iteration
@@ -96,11 +104,11 @@ __global__ void __launch_bounds__(kMaxThreads) flooding_minsum_kernel(
 
   // the reference zeroes its working area (decoder.rs:374): v, m1, m2, sign
   for (int x = tid; x < RM; x += nt) {
-    m1s[x] = T(0);
-    m2s[x] = T(0);
+    m1s[x] = Ar::st(A(0));
+    m2s[x] = Ar::st(A(0));
     sgs[x] = 0;
   }
-  for (int x = tid; x < sumA * M; x += nt) vs[x] = T(0);
+  for (int x = tid; x < sumA * M; x += nt) vs[x] = Ar::st(A(0));
   __syncthreads();
 
   int converged = 0;
@@ -109,17 +117,17 @@ __global__ void __launch_bounds__(kMaxThreads) flooding_minsum_kernel(
     // sweep 1: posteriors from the channel LLRs, in the twin's addend order
     for (int v = tid; v < V; v += nt) {
       const int c = v / M, o = v - c * M;
-      A acc = v < n ? static_cast<A>(llr[v]) : A(0);  // punctured tail = 0
+      A acc = v < n ? Ar::ld(llr[v]) : A(0);  // punctured tail = 0
       for (int k = col_off[c]; k < col_off[c + 1]; ++k) {
         const int e = col_edges[k];
         const int* a = table + e * kTableCols;
         const int i = perm_inverse(a, o, M);
         const int ci = a[0] * M + i;
-        const A u = u_msg<Ar, A>(static_cast<A>(vs[e * M + i]), static_cast<A>(m1s[ci]),
-                                 static_cast<A>(m2s[ci]), sgs[ci] != 0, use_alpha, alpha);
-        acc = Ar::sat(Ar::add(acc, u));
+        const A u = u_msg<Ar, A>(Ar::ld(vs[e * M + i]), Ar::ld(m1s[ci]), Ar::ld(m2s[ci]),
+                                 sgs[ci] != 0, use_alpha, alpha);
+        acc = Ar::sat(Ar::post(acc, u));
       }
-      va[v] = static_cast<T>(acc);
+      va[v] = Ar::st(acc);
     }
     __syncthreads();  // every posterior precedes sweep 2's gathers
 
@@ -127,15 +135,15 @@ __global__ void __launch_bounds__(kMaxThreads) flooding_minsum_kernel(
     int bad = 0;
     for (int c = tid; c < RM; c += nt) {
       const int r = c / M, i = c - r * M;
-      const A m1o = m1s[c], m2o = m2s[c];
+      const A m1o = Ar::ld(m1s[c]), m2o = Ar::ld(m2s[c]);
       const bool sgo = sgs[c] != 0;
       A m1 = Ar::big(), m2 = Ar::big();
       int sg = 0, par = 0;
       for (int e = row_off[r]; e < row_off[r + 1]; ++e) {
         const int* a = table + e * kTableCols;
-        const A v_old = vs[e * M + i];
+        const A v_old = Ar::ld(vs[e * M + i]);
         const A u = u_msg<Ar, A>(v_old, m1o, m2o, sgo, use_alpha, alpha);
-        const A g = va[a[1] * M + perm_index(a, i, M)];
+        const A g = Ar::ld(va[a[1] * M + perm_index(a, i, M)]);
         A nv = Ar::sat(Ar::sub(g, u));
         const bool keep = ((nv < A(0)) == (v_old < A(0))) || (v_old == A(0));
         nv = keep ? nv : A(0);  // decoder.rs:420-426
@@ -144,10 +152,10 @@ __global__ void __launch_bounds__(kMaxThreads) flooding_minsum_kernel(
         m2 = a1 < m1 ? m1 : Ar::min(m2, a1);
         m1 = Ar::min(m1, a1);
         sg ^= nv < A(0) ? 1 : 0;
-        vs[e * M + i] = static_cast<T>(nv);  // this thread's own slot
+        vs[e * M + i] = Ar::st(nv);  // this thread's own slot
       }
-      m1s[c] = static_cast<T>(m1);
-      m2s[c] = static_cast<T>(m2);
+      m1s[c] = Ar::st(m1);  // exact: mins of bfloat16 values in the bf16 form
+      m2s[c] = Ar::st(m2);
       sgs[c] = static_cast<uint8_t>(sg);
       bad |= par;
     }
@@ -161,7 +169,7 @@ __global__ void __launch_bounds__(kMaxThreads) flooding_minsum_kernel(
   // a converged codeword reports the signs of its convergence iteration, a
   // failed one those of its last; no iteration at all (maxiters = 0) gives 0
   uint8_t* out = bits + static_cast<size_t>(b) * V;
-  for (int v = tid; v < V; v += nt) out[v] = (maxiters > 0 && va[v] < T(0)) ? 1 : 0;
+  for (int v = tid; v < V; v += nt) out[v] = (maxiters > 0 && Ar::ld(va[v]) < A(0)) ? 1 : 0;
   if (tid == 0) {
     success[b] = static_cast<uint8_t>(converged);
     iterations[b] = it_done;
@@ -190,7 +198,8 @@ int launch(const T* llrs, uint8_t* bits, uint8_t* success, int32_t* iterations,
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes, one entry point per LLR dtype. Each
+// Plain C interface, loaded with ctypes, one entry point per LLR dtype
+// (bfloat16 as __nv_bfloat16, the bits of a torch.bfloat16). Each
 // launches on `stream`, does not synchronise, allocates nothing, and returns
 // the cudaError_t of the launch.
 #define FLOODING_ENTRY(NAME, T)                                                             \
@@ -203,5 +212,6 @@ int launch(const T* llrs, uint8_t* bits, uint8_t* success, int32_t* iterations,
   }
 
 FLOODING_ENTRY(flooding_minsum_f32, float)
+FLOODING_ENTRY(flooding_minsum_bf16, __nv_bfloat16)
 FLOODING_ENTRY(flooding_minsum_i8, int8_t)
 FLOODING_ENTRY(flooding_minsum_i16, int16_t)

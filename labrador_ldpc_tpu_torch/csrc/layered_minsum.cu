@@ -1,5 +1,6 @@
 // Row-layered self-corrected min-sum LDPC decoder for Hopper (sm_90a), in
-// float32 and in the saturating int8/int16 forms.
+// float32, in the TPU kernels' bfloat16 form and in the saturating int8/int16
+// forms.
 //
 // Replaces two TPU kernels of the JAX package, both pinned bit-exact to the
 // XLA twin labrador_ldpc_tpu/ops/qc_minsum.py:223 make_ms_decoder_layered:
@@ -22,13 +23,24 @@
 // 2^24). Float32 keeps every rounding of the plain version: Arith<float>
 // spells each one out.
 //
+// The bfloat16 form (B1/B2 with bf16 LLRs, pallas_qc.py:880-1006,
+// pallas_tc.py:339-410) stores the LLRs and u/t' in bfloat16 and computes in
+// float32: t = g - u_old stays float32 (the self-correction and the sign
+// product read it), the two-min takes |bf16(t)| (Ar::sat_abs), u = +-mag is
+// float32 (alpha * mag a float32 product), the posterior update rounds twice,
+// va <- bf16(va + bf16(u - u_old)) (Ar::post), and u and t' are stored as
+// bf16. va stays in shared memory as float holding bfloat16 values. The sign
+// of bf16(t), which pass 2 reads back, is the sign of t: t is a difference
+// of two bfloat16 values, so it is zero only where bf16(t) is.
+//
 // Design. One CTA decodes one codeword (grid = B); its threads loop over the
 // M check nodes of a layer. The posteriors va (V values of 4 bytes) and the
 // layer's two-min/sign statistics (3*M) live in dynamic shared memory (TM8192:
 // 40,960 + 24,576 B). The per-edge check messages u and previous extrinsics
 // t' (sumA*M values each, 245,760 B per TM8192 codeword in float32) do not
 // fit in the 227 KB a block can address, so they live in a global scratch
-// (B, sumA, M) of T that the wrapper allocates; iteration 0 is peeled
+// (B, sumA, M) of T that the wrapper allocates (TM8192, B=16384: 4.03 GB in
+// float32, 2.01 GB in bfloat16 or int16); iteration 0 is peeled
 // (u = t' = 0 are not read), so the scratch needs no zeroing. Each codeword stops at its own
 // convergence; the branch is uniform across the block (__syncthreads_or).
 //
@@ -73,7 +85,7 @@ __global__ void layered_minsum_kernel(
     const int* __restrict__ row_off,       // (R + 1,)
     int n, int M, int R, int Cc, int sumA, int maxiters, int use_alpha, float alpha) {
   using Ar = ms::Arith<T>;
-  using A = typename Ar::A;  // float for float32, int (wide) for int8/int16
+  using A = typename Ar::A;  // float for float32/bfloat16, int (wide) for int8/int16
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int V = Cc * M;
   A* va = reinterpret_cast<A*>(smem_raw);            // (V,) posteriors
@@ -89,7 +101,7 @@ __global__ void layered_minsum_kernel(
   T* TP = tp_all + static_cast<size_t>(b) * sumA * M;
 
   // posteriors start at the channel LLRs; punctured tail = 0
-  for (int v = tid; v < V; v += nt) va[v] = v < n ? static_cast<A>(llr[v]) : A(0);
+  for (int v = tid; v < V; v += nt) va[v] = v < n ? Ar::ld(llr[v]) : A(0);
   __syncthreads();
 
   int converged = 0;
@@ -106,12 +118,12 @@ __global__ void layered_minsum_kernel(
         for (int e = e0; e < e1; ++e) {
           const int* a = table + e * kTableCols;
           const A g = va[a[1] * M + perm_index(a, i, M)];
-          const A u_old = first ? A(0) : static_cast<A>(U[e * M + i]);
-          const A tp = first ? A(0) : static_cast<A>(TP[e * M + i]);
+          const A u_old = first ? A(0) : Ar::ld(U[e * M + i]);
+          const A tp = first ? A(0) : Ar::ld(TP[e * M + i]);
           A t = Ar::sat(Ar::sub(g, u_old));
           const bool keep = ((t < A(0)) == (tp < A(0))) || (tp == A(0));
           t = keep ? t : A(0);
-          TP[e * M + i] = static_cast<T>(t);
+          TP[e * M + i] = Ar::st(t);
           const A a1 = Ar::sat_abs(t);
           m2 = a1 < m1 ? m1 : Ar::min(m2, a1);
           m1 = Ar::min(m1, a1);
@@ -127,16 +139,16 @@ __global__ void layered_minsum_kernel(
         const int* a = table + e * kTableCols;
         A* vcol = va + a[1] * M;
         for (int i = tid; i < M; i += nt) {
-          const A t = static_cast<A>(TP[e * M + i]);
-          const A u_old = first ? A(0) : static_cast<A>(U[e * M + i]);
+          const A t = Ar::ld(TP[e * M + i]);
+          const A u_old = first ? A(0) : Ar::ld(U[e * M + i]);
           const A m1 = m1s[i];
           A mag = Ar::sat_abs(t) == m1 ? m2s[i] : m1;  // equality tie rule
           if (use_alpha) mag = Ar::scale(alpha, mag);
           const bool neg = (sgs[i] != 0) != (t < A(0));
           const A u = neg ? -mag : mag;
           const int v = perm_index(a, i, M);
-          vcol[v] = Ar::add(vcol[v], Ar::sub(u, u_old));  // wide: never clipped
-          U[e * M + i] = static_cast<T>(u);
+          vcol[v] = Ar::post(vcol[v], Ar::sub(u, u_old));  // int: wide, never clipped
+          U[e * M + i] = Ar::st(u);
         }
         __syncthreads();  // two addends of a layer may share a column
       }
@@ -191,7 +203,8 @@ int launch(const T* llrs, uint8_t* bits, uint8_t* success, int32_t* iterations,
 }  // namespace
 
 // Plain C interface, loaded with ctypes, one entry point per LLR dtype; the
-// scratch u/t' is of the LLRs' type. Each launches on `stream`, does not
+// scratch u/t' is of the LLRs' type (bfloat16 as __nv_bfloat16, the bits of
+// a torch.bfloat16). Each launches on `stream`, does not
 // synchronise, allocates nothing, and returns the cudaError_t of the launch.
 #define LAYERED_ENTRY(NAME, T)                                                             \
   extern "C" int NAME(const T* llrs, uint8_t* bits, uint8_t* success, int32_t* iterations, \
@@ -203,5 +216,6 @@ int launch(const T* llrs, uint8_t* bits, uint8_t* success, int32_t* iterations,
   }
 
 LAYERED_ENTRY(layered_minsum_f32, float)
+LAYERED_ENTRY(layered_minsum_bf16, __nv_bfloat16)
 LAYERED_ENTRY(layered_minsum_i8, int8_t)
 LAYERED_ENTRY(layered_minsum_i16, int16_t)

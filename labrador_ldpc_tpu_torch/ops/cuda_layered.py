@@ -3,13 +3,15 @@
 Wraps `csrc/layered_minsum.cu`, the Hopper port of the two TPU kernels of
 the main path (labrador_ldpc_tpu/ops/pallas_qc.py:728
 make_ms_decoder_pallas_layered and labrador_ldpc_tpu/ops/pallas_tc.py:268
-make_ms_decoder_pallas_tc_layered), for all nine codes, in float32 and in
-the saturating int8/int16 forms (one C entry point per dtype).
+make_ms_decoder_pallas_tc_layered), for all nine codes, in float32, in the
+TPU kernels' bfloat16 form (bfloat16 storage, float32 arithmetic) and in the
+saturating int8/int16 forms (one C entry point per dtype).
 
 On a CPU tensor the wrapper runs the plain version
 (`qc_minsum.layered_minsum_plain`); on a CUDA tensor it launches the kernel
 or raises. `launches` counts kernel launches and nothing else;
-`form_launches` splits the same count by dtype form ("f32", "i8", "i16").
+`form_launches` splits the same count by dtype form ("f32", "bf16", "i8",
+"i16"). float64 LLRs raise a ValueError, as the TPU kernels refuse them.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
 from ._nvcc import load_library
 from .minsum import MSResult
-from .qc_minsum import check_llrs, layered_minsum_plain
+from .qc_minsum import KERNEL_DTYPES, check_llrs, layered_minsum_plain
 
 __all__ = ["make_ms_decoder_cuda_layered", "layered_minsum", "addend_table", "column_order",
            "FORMS", "SOURCE"]
@@ -33,7 +35,7 @@ __all__ = ["make_ms_decoder_cuda_layered", "layered_minsum", "addend_table", "co
 SOURCE = "layered_minsum.cu"
 
 # the kernels' dtype forms: the suffix of each C entry point
-FORMS = {torch.float32: "f32", torch.int8: "i8", torch.int16: "i16"}
+FORMS = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "i8", torch.int16: "i16"}
 
 # kernel launches since import; read and reset as `cuda_layered.launches`
 launches = 0
@@ -98,9 +100,9 @@ def _launch(code: LDPCCode, llrs: torch.Tensor, maxiters: int, alpha: float | No
         return MSResult(success, iterations, bits)
     table, off = _device_tables(code, dev)
     sumA = table.shape[0]
-    # per-edge state lives in device memory, in the LLRs' dtype (module
-    # docstring of the source); iteration 0 is peeled inside the kernel, so
-    # no zeroing
+    # per-edge state lives in device memory, in the LLRs' dtype (bfloat16 for
+    # the bf16 form; module docstring of the source); iteration 0 is peeled
+    # inside the kernel, so no zeroing
     u = torch.empty((B, sumA, M), dtype=llrs.dtype, device=dev)
     tp = torch.empty((B, sumA, M), dtype=llrs.dtype, device=dev)
     form = FORMS[llrs.dtype]
@@ -122,10 +124,10 @@ def _launch(code: LDPCCode, llrs: torch.Tensor, maxiters: int, alpha: float | No
 
 def layered_minsum(code: LDPCCode | str, llrs: torch.Tensor, maxiters: int,
                    alpha: float | None = None) -> MSResult:
-    """Decode (B, n) float32, int8 or int16 LLRs where they lie: the kernel
-    on CUDA, the plain version on the CPU."""
+    """Decode (B, n) float32, bfloat16, int8 or int16 LLRs where they lie: the
+    kernel on CUDA, the plain version on the CPU."""
     code = get_code(code)
-    check_llrs(llrs, code.n, alpha)
+    check_llrs(llrs, code.n, alpha, KERNEL_DTYPES)
     if llrs.device.type == "cuda":
         return _launch(code, llrs, maxiters, alpha)
     if llrs.device.type == "cpu":
@@ -141,8 +143,9 @@ def make_ms_decoder_cuda_layered(
 ):
     """Row-layered self-corrected min-sum decoder through the CUDA kernel.
 
-    Returns fn(llrs: (B, n) float32, int8 or int16) -> MSResult, run on
-    `device`; `device="cpu"` runs the plain version. `alpha` needs float32.
+    Returns fn(llrs: (B, n) float32, bfloat16, int8 or int16) -> MSResult, run
+    on `device`; `device="cpu"` runs the plain version. `alpha` needs float
+    LLRs (a float32 alpha, as the TPU kernels', also for bfloat16).
     """
     code = get_code(code)
     dev = resolve_device(device)

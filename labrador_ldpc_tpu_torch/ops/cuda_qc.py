@@ -3,13 +3,15 @@
 Wraps `csrc/flooding_minsum.cu`, the Hopper port of the two TPU flooding
 kernels (labrador_ldpc_tpu/ops/pallas_qc.py:265 make_ms_decoder_pallas_qc and
 labrador_ldpc_tpu/ops/pallas_tc.py:506 make_ms_decoder_pallas_tc_qc), for all
-nine codes, in float32 (with alpha) and in the saturating int8/int16 forms
-(one C entry point per dtype). impl "cuda_qc" of the decoder registry.
+nine codes, in float32 and bfloat16 (with alpha; bfloat16 storage, float32
+arithmetic, as the TPU kernels) and in the saturating int8/int16 forms (one C
+entry point per dtype). impl "cuda_qc" of the decoder registry.
 
 On a CPU tensor the wrapper runs the plain version
 (`qc_minsum.flooding_minsum_plain`); on a CUDA tensor it launches the kernel
 or raises. `launches` counts kernel launches and nothing else;
-`form_launches` splits the same count by dtype form ("f32", "i8", "i16").
+`form_launches` splits the same count by dtype form ("f32", "bf16", "i8",
+"i16"). float64 LLRs raise a ValueError, as the TPU kernels refuse them.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..device import resolve_device
 from ._nvcc import load_library
 from .cuda_layered import FORMS, addend_table, column_order
 from .minsum import MSResult
-from .qc_minsum import check_llrs, flooding_minsum_plain
+from .qc_minsum import KERNEL_DTYPES, check_llrs, flooding_minsum_plain
 
 __all__ = ["make_ms_decoder_cuda_qc", "flooding_minsum", "SOURCE"]
 
@@ -93,10 +95,10 @@ def _launch(code: LDPCCode, llrs: torch.Tensor, maxiters: int, alpha: float | No
 
 def flooding_minsum(code: LDPCCode | str, llrs: torch.Tensor, maxiters: int,
                     alpha: float | None = None) -> MSResult:
-    """Decode (B, n) float32, int8 or int16 LLRs where they lie: the kernel
-    on CUDA, the plain version on the CPU."""
+    """Decode (B, n) float32, bfloat16, int8 or int16 LLRs where they lie: the
+    kernel on CUDA, the plain version on the CPU."""
     code = get_code(code)
-    check_llrs(llrs, code.n, alpha)
+    check_llrs(llrs, code.n, alpha, KERNEL_DTYPES)
     if llrs.device.type == "cuda":
         return _launch(code, llrs, maxiters, alpha)
     if llrs.device.type == "cpu":
@@ -112,10 +114,11 @@ def make_ms_decoder_cuda_qc(
 ):
     """Flooding self-corrected min-sum decoder through the CUDA kernel.
 
-    Returns fn(llrs: (B, n) float32, int8 or int16) -> MSResult, run on
-    `device`; `device="cpu"` runs the plain version. float32 is
-    `make_ms_decoder_qc`'s function, int8/int16 `make_ms_decoder_qc_int`'s;
-    `alpha` needs float32.
+    Returns fn(llrs: (B, n) float32, bfloat16, int8 or int16) -> MSResult, run
+    on `device`; `device="cpu"` runs the plain version. float32 is
+    `make_ms_decoder_qc`'s function (bfloat16 too without alpha; with alpha
+    the kernel keeps alpha in float32, as the TPU kernels), int8/int16
+    `make_ms_decoder_qc_int`'s; `alpha` needs float LLRs.
     """
     code = get_code(code)
     dev = resolve_device(device)

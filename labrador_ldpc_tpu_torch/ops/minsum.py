@@ -11,8 +11,10 @@ fields, the saturating helpers of the reference's `DecodeFrom`
 (decoder.rs:347-475) in its own edge order: every variable adds its check
 messages in the reference's per-variable order with a saturating add after
 each, so float32, int8, int16 and int32 give the JAX twin's results bit for
-bit. It is plain PyTorch: the JAX package has no Pallas kernel for it and runs
-it outside any kernel on the TPU too.
+bit. bfloat16 and float64 compute plainly in their own dtype: every bfloat16
+op rounds to bfloat16, as XLA's does, and alpha is itself a bfloat16. It is
+plain PyTorch: the JAX package has no Pallas kernel for it and runs it outside
+any kernel on the TPU too.
 """
 
 from __future__ import annotations
@@ -30,14 +32,10 @@ __all__ = ["decode_ms", "make_ms_decoder", "MSResult"]
 
 # dtypes the saturating integer arithmetic of DecodeFrom covers
 INT_DTYPES = (torch.int8, torch.int16, torch.int32)
+FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 # LLR dtypes of the min-sum decoders in this port (the reference-order one
 # takes them all)
-DTYPES = (torch.float32, *INT_DTYPES)
-# dtypes whose decoders come with a later slice
-LATER_DTYPES = {
-    torch.bfloat16: "the bf16 forms of the kernels B1-B4 come with ROADMAP Queue A5",
-    torch.float64: "float64 comes with the bf16 forms (ROADMAP Queue A5)",
-}
+DTYPES = (*FLOAT_DTYPES, *INT_DTYPES)
 
 
 class MSResult(NamedTuple):
@@ -99,12 +97,9 @@ def _maxval(dtype: torch.dtype):
 
 
 def check_dtype(dtype: torch.dtype, supported: tuple) -> None:
-    """Raise a ValueError for an LLR dtype outside `supported`, naming the
-    queue item for the dtypes still to come."""
+    """Raise a ValueError for an LLR dtype outside `supported`."""
     if dtype in supported:
         return
-    if dtype in LATER_DTYPES:
-        raise ValueError(f"{dtype} LLRs are not in this port yet: {LATER_DTYPES[dtype]}")
     names = "/".join(str(d).removeprefix("torch.") for d in supported)
     raise ValueError(f"this decoder takes {names} LLRs, got {dtype}")
 
@@ -132,7 +127,7 @@ def _device_tables(code: LDPCCode, device: torch.device) -> dict:
 def minsum_ref(code: LDPCCode, llrs: torch.Tensor, maxiters: int,
                alpha: float | None = None) -> MSResult:
     """Reference-order self-corrected min-sum of (B, n) LLRs on their own
-    device, in their own dtype (float32, int8, int16 or int32)."""
+    device, in their own dtype (any of `DTYPES`)."""
     dtype, dev = llrs.dtype, llrs.device
     tabs = _device_tables(code, dev)
     t = tabs["meta"]
@@ -201,10 +196,10 @@ def make_ms_decoder(
 ):
     """Reference-order self-corrected min-sum decoder (impl "ref").
 
-    Returns fn(llrs: (B, n) float32, int8, int16 or int32) -> MSResult, run on
-    `device` in the LLRs' dtype; the int dtypes saturate at every add as the
-    reference's DecodeFrom does. Positive LLRs favor bit 0. `alpha`
-    (normalized min-sum) needs float32 LLRs.
+    Returns fn(llrs: (B, n) float32, bfloat16, float64, int8, int16 or int32)
+    -> MSResult, run on `device` in the LLRs' dtype; the int dtypes saturate at
+    every add as the reference's DecodeFrom does. Positive LLRs favor bit 0.
+    `alpha` (normalized min-sum) needs float LLRs.
     """
     code = get_code(code)
     dev = resolve_device(device)
@@ -214,7 +209,7 @@ def make_ms_decoder(
         llrs = torch.as_tensor(llrs, device=dev)
         check_dtype(llrs.dtype, DTYPES)
         if alpha is not None and llrs.dtype in INT_DTYPES:
-            raise ValueError("normalized min-sum (alpha) requires float32 LLRs")
+            raise ValueError("normalized min-sum (alpha) requires float LLRs")
         if llrs.ndim != 2 or llrs.shape[1] != n:
             raise ValueError(f"llrs must be (B, {n}), got {tuple(llrs.shape)}")
         return minsum_ref(code, llrs, maxiters, alpha)
@@ -242,10 +237,11 @@ def decode_ms(
     """Batched min-sum decode of (B, n) LLRs on `device`.
 
     The decoder is built once per (code, dtype, maxiters, alpha, impl,
-    device). `impl="auto"` resolves, for float32, int8 and int16 LLRs, to the
-    hand-written CUDA layered kernel on a CUDA device and to the plain
-    PyTorch layered decoder on the CPU, and for int32 to the reference-order
-    decoder (`channel.awgn.resolve_impl`).
+    device). `impl="auto"` resolves, for float32, bfloat16, int8 and int16
+    LLRs, to the hand-written CUDA layered kernel on a CUDA device and to the
+    plain PyTorch layered decoder on the CPU, for float64 (which no kernel
+    takes) to the plain layered decoder everywhere, and for int32 to the
+    reference-order decoder (`channel.awgn.resolve_impl`).
     """
     code = get_code(code)
     dev = resolve_device(device)

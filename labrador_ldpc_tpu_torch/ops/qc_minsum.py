@@ -1,16 +1,17 @@
 """Self-corrected min-sum over the QC block structure (plain PyTorch).
 
 PyTorch counterpart of `labrador_ldpc_tpu/ops/qc_minsum.py`: `perm_rows`,
-the row-layered schedule (`make_ms_decoder_layered`, float32 and the
-saturating int8/int16 form) and the reference's flooding schedule
-(`make_ms_decoder_qc`, float32; `make_ms_decoder_qc_int`, saturating
-int8/int16). `layered_minsum_plain` and `flooding_minsum_plain` are the plain
-versions of the CUDA kernels in `ops/cuda_layered.py` and `ops/cuda_qc.py`
-(and their CPU path). The TPU kernels are pinned bit-exact to the JAX twins,
-this module is pinned bit-exact to the JAX twins on the CPU
-(tests/test_torch_layered*.py, test_torch_flooding.py, test_torch_int*.py),
-and the CUDA kernels are pinned bit-exact to this module on the card
-(chip_smoke.py).
+the row-layered schedule (`make_ms_decoder_layered`: float32, bfloat16,
+float64 and the saturating int8/int16 form) and the reference's flooding
+schedule (`make_ms_decoder_qc`, float32/bfloat16/float64;
+`make_ms_decoder_qc_int`, saturating int8/int16). `layered_minsum_plain` and
+`flooding_minsum_plain` are the plain versions of the CUDA kernels in
+`ops/cuda_layered.py` and `ops/cuda_qc.py` (and their CPU path). The TPU
+kernels are pinned bit-exact to the JAX twins in float32 and the int forms,
+this module is pinned bit-exact to the JAX twins and to the interpreted TPU
+kernels on the CPU (tests/test_torch_layered*.py, test_torch_flooding.py,
+test_torch_int*.py, test_torch_bf16.py, test_torch_f64.py), and the CUDA
+kernels are pinned bit-exact to this module on the card (chip_smoke.py).
 
 Every nonzero M x M sub-block of H is a permutation (codes/expand.py
 `qc_structure`), so all message movement is a `torch.roll` along the node
@@ -35,6 +36,22 @@ addend's u, from the check's stored two-min and sign, added in row then
 addend order), then (sweep 2) every check takes its self-corrected v = g - u
 over the gathered posteriors g, its new two-min and sign, and the parity of
 g. The int form saturates after every add and sub, as DecodeFrom does.
+
+bfloat16 follows the TPU kernels' storage contract (pallas_qc.py:38-41): the
+state (posteriors, u, t', v, the two-min) is stored in bfloat16 and the
+arithmetic runs in float32, with a rounding wherever a kernel stores a value.
+Layered (pallas_qc.py:880-1006, pallas_tc.py:339-410): t = g - u_old stays
+float32 (the self-correction and the sign product read it), the two-min
+takes |bf16(t)|, u = +-mag is float32 (alpha * mag a float32 product), and
+va <- bf16(va + bf16(u - u_old)). Flooding (pallas_qc.py:405-455,
+pallas_tc.py:611, 658): va <- bf16(va + bf16(u)) addend by addend,
+nv = g - u in float32 with the self-correction against the stored v, and the
+two-min takes |bf16(nv)|. The XLA twins compute in bfloat16 instead (every
+op rounds, and alpha itself is a bfloat16): without alpha the two agree
+exactly, since every value that feeds a comparison or a store is the same
+bfloat16 number; with alpha they differ by alpha's rounding. `round_alpha`
+selects the twin's alpha (the twins' decoders below pass it); everything else
+is one function. float64 computes plainly in float64.
 """
 
 from __future__ import annotations
@@ -44,7 +61,7 @@ import torch
 from ..codes.expand import BlockPerm, QCStructure, qc_structure
 from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
-from .minsum import MSResult, check_dtype
+from .minsum import FLOAT_DTYPES, MSResult, check_dtype
 
 __all__ = [
     "make_ms_decoder_layered",
@@ -56,9 +73,11 @@ __all__ = [
     "perm_rows",
 ]
 
-# LLR dtypes of the QC decoders and their kernels
-QC_DTYPES = (torch.float32, torch.int8, torch.int16)
 SAT_DTYPES = (torch.int8, torch.int16)
+# LLR dtypes of the QC decoders (plain PyTorch) and of their CUDA kernels,
+# which take what the TPU kernels take: no float64
+QC_DTYPES = (*FLOAT_DTYPES, *SAT_DTYPES)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, *SAT_DTYPES)
 
 
 def perm_rows(x: torch.Tensor, perm: BlockPerm, inverse: bool = False) -> torch.Tensor:
@@ -89,38 +108,69 @@ def check_llrs(llrs: torch.Tensor, n: int, alpha: float | None,
     is None for the saturating int dtypes."""
     if llrs.dtype == torch.int32 and torch.int32 not in dtypes:
         raise ValueError(
-            "the QC decoders take float32/int8/int16 LLRs; int32 LLRs go to the "
+            "the QC decoders take float and int8/int16 LLRs; int32 LLRs go to the "
             "reference-order decoder (impl='ref', make_ms_decoder)"
+        )
+    if llrs.dtype == torch.float64 and torch.float64 not in dtypes:
+        raise ValueError(
+            "the CUDA min-sum kernels take float32/bfloat16/int8/int16 LLRs, as the TPU "
+            "kernels do; float64 LLRs go to impl='layered'|'qc'|'ref'"
         )
     check_dtype(llrs.dtype, dtypes)
     if alpha is not None and llrs.dtype in SAT_DTYPES:
-        raise ValueError("the saturating int paths do not support alpha (float32 only)")
+        raise ValueError("the saturating int paths do not support alpha (float only)")
     if llrs.ndim != 2 or llrs.shape[1] != n:
         raise ValueError(f"llrs must be (B, {n}), got {tuple(llrs.shape)}")
 
 
 class _Arith:
-    """Compute dtype, two-min seed and saturation of one LLR dtype: float32
-    computes in float32; int8/int16 compute in int32 with explicit clips."""
+    """Compute dtype, two-min seed, saturation and storage rounding of one
+    LLR dtype: float32 and float64 compute in their own dtype; bfloat16
+    computes in float32 and rounds to bfloat16 where the kernels store;
+    int8/int16 compute in int32 with explicit clips."""
 
-    def __init__(self, dtype: torch.dtype, device: torch.device):
+    def __init__(self, dtype: torch.dtype, device: torch.device, alpha: float | None = None,
+                 round_alpha: bool = False):
         self.is_int = dtype in SAT_DTYPES
+        self.rounds = dtype == torch.bfloat16
         if self.is_int:
             info = torch.iinfo(dtype)
             self.lo, self.hi = info.min, info.max
             self.cdt = torch.int32
             self.big = self.hi  # the int two-min seeds at the saturation point
         else:
-            self.cdt = torch.float32
-            self.big = torch.finfo(torch.float32).max
+            self.cdt = torch.float32 if self.rounds else dtype
+            self.big = torch.finfo(self.cdt).max
         self.zero = torch.zeros((), dtype=self.cdt, device=device)
+        self.round_alpha = round_alpha and self.rounds
+        self.alpha = None
+        if alpha is not None:
+            adt = torch.bfloat16 if self.round_alpha else self.cdt
+            self.alpha = torch.tensor(alpha, dtype=adt, device=device).to(self.cdt)
 
     def sat(self, x: torch.Tensor) -> torch.Tensor:
         return x.clamp(self.lo, self.hi) if self.is_int else x
 
+    def store(self, x: torch.Tensor) -> torch.Tensor:
+        """x as the kernels store it: rounded to bfloat16 in the bf16 form."""
+        return x.to(torch.bfloat16).to(self.cdt) if self.rounds else x
+
     def sat_abs(self, x: torch.Tensor) -> torch.Tensor:
-        """|x|, with |-128| -> 127 (|-32768| -> 32767) in the int forms."""
-        return torch.clamp(x.abs(), max=self.hi) if self.is_int else x.abs()
+        """|x| of a message as the two-min sees it: |-128| -> 127 (|-32768|
+        -> 32767) in the int forms, |bf16(x)| in the bf16 form."""
+        if self.is_int:
+            return torch.clamp(x.abs(), max=self.hi)
+        return self.store(x).abs()
+
+    def post(self, va: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+        """The posterior update va + d: bf16(va + bf16(d)) in the bf16 form."""
+        return self.store(va + self.store(d))
+
+    def scale(self, mag: torch.Tensor) -> torch.Tensor:
+        """alpha * mag: a float32 product in the kernels' bf16 form, the
+        twin's bfloat16 product of a bfloat16 alpha with `round_alpha`."""
+        out = self.alpha * mag
+        return self.store(out) if self.round_alpha else out
 
 
 def _row_offsets(s: QCStructure) -> list[int]:
@@ -148,14 +198,15 @@ def layered_minsum_plain(
     maxiters: int,
     alpha: float | None = None,
     self_corrected: bool = True,
+    round_alpha: bool = False,
 ) -> MSResult:
-    """Decode (B, n) float32, int8 or int16 LLRs on their own device."""
+    """Decode (B, n) LLRs of `QC_DTYPES` on their own device; `round_alpha`
+    takes the XLA twin's bfloat16 alpha (module docstring)."""
     M, Cc = s.m, s.n_block_cols
     B = llrs.shape[0]
     dev = llrs.device
-    ar = _Arith(llrs.dtype, dev)
+    ar = _Arith(llrs.dtype, dev, alpha, round_alpha)
     cdt, zero = ar.cdt, ar.zero
-    alpha_t = None if alpha is None else torch.tensor(alpha, dtype=cdt, device=dev)
 
     va = _llr_blocks(s, llrs, cdt)  # wide posteriors: never clipped in the int forms
     row_off = _row_offsets(s)
@@ -170,8 +221,9 @@ def layered_minsum_plain(
     while it < maxiters and not bool(done.all()):
         for r, row in enumerate(s.rows):
             # extrinsic t = va - u for each addend of this layer (saturated in
-            # the int forms, decoder.rs:46-48), with the reference's
-            # self-correction (zero on sign flip, decoder.rs:420-426)
+            # the int forms, decoder.rs:46-48, never rounded in the bf16 form),
+            # with the reference's self-correction (zero on sign flip,
+            # decoder.rs:420-426)
             ts = []
             for a, perm in enumerate(row):
                 e = row_off[r] + a
@@ -196,13 +248,13 @@ def layered_minsum_plain(
                 e = row_off[r] + a
                 t = ts[a]
                 mag = torch.where(a1s[a] == m1, m2, m1)  # equality tie rule
-                if alpha_t is not None:
-                    mag = alpha_t * mag
+                if ar.alpha is not None:
+                    mag = ar.scale(mag)
                 u = torch.where(sg ^ (t < 0), -mag, mag)
                 # va <- va + perm_inv(u_new - u_old), addend by addend
-                va[perm.col] = va[perm.col] + perm_rows(u - us[e], perm, inverse=True)
-                us[e] = u
-                tps[e] = t
+                va[perm.col] = ar.post(va[perm.col], perm_rows(u - us[e], perm, inverse=True))
+                us[e] = ar.store(u)
+                tps[e] = ar.store(t)
 
         # end-of-iteration syndrome over the FINAL posteriors
         signs = [va[c] < 0 for c in range(Cc)]
@@ -233,16 +285,17 @@ def flooding_minsum_plain(
     llrs: torch.Tensor,
     maxiters: int,
     alpha: float | None = None,
+    round_alpha: bool = False,
 ) -> MSResult:
-    """Flooding self-corrected min-sum of (B, n) float32, int8 or int16 LLRs
-    on their own device: `make_ms_decoder_qc` for float32,
-    `make_ms_decoder_qc_int` (saturating at every add and sub) for ints."""
+    """Flooding self-corrected min-sum of (B, n) LLRs of `QC_DTYPES` on their
+    own device: `make_ms_decoder_qc` for the float dtypes,
+    `make_ms_decoder_qc_int` (saturating at every add and sub) for ints;
+    `round_alpha` takes the XLA twin's bfloat16 alpha (module docstring)."""
     M, R, Cc = s.m, s.n_block_rows, s.n_block_cols
     B = llrs.shape[0]
     dev = llrs.device
-    ar = _Arith(llrs.dtype, dev)
+    ar = _Arith(llrs.dtype, dev, alpha, round_alpha)
     cdt, zero = ar.cdt, ar.zero
-    alpha_t = None if alpha is None else torch.tensor(alpha, dtype=cdt, device=dev)
     llr_blocks = _llr_blocks(s, llrs, cdt)
     row_off = _row_offsets(s)
 
@@ -250,8 +303,8 @@ def flooding_minsum_plain(
         """Check -> var message from the check's stats (decoder.rs:388-405);
         |v| is not saturated here (|-128| == 128 never equals a stored min)."""
         mag = torch.where(v.abs() == m1, m2, m1)
-        if alpha_t is not None:
-            mag = alpha_t * mag
+        if ar.alpha is not None:
+            mag = ar.scale(mag)
         return torch.where(sg ^ (v < 0), -mag, mag)
 
     z = torch.zeros((M, B), dtype=cdt, device=dev)
@@ -265,12 +318,12 @@ def flooding_minsum_plain(
     it = 0
     while it < maxiters and not bool(done.all()):
         # sweep 1: marginals from the channel LLRs, in row then addend order,
-        # saturating after every add in the int form
+        # saturating (int) or rounding (bf16) after every add
         va = list(llr_blocks)
         for r, row in enumerate(s.rows):
             for a, perm in enumerate(row):
                 u = u_from(vs[row_off[r] + a], min1[r], min2[r], sgn[r])
-                va[perm.col] = ar.sat(va[perm.col] + perm_rows(u, perm, inverse=True))
+                va[perm.col] = ar.sat(ar.post(va[perm.col], perm_rows(u, perm, inverse=True)))
 
         # sweep 2: self-corrected v; the checks' new stats; parity of g
         new_vs = []
@@ -292,7 +345,7 @@ def flooding_minsum_plain(
                 m2 = torch.where(a1 < m1, m1, torch.minimum(m2, a1))
                 m1 = torch.minimum(m1, a1)
                 sg = sg ^ (nv < 0)
-                new_vs.append(nv)
+                new_vs.append(ar.store(nv))
             ok = ok & ~par.any(dim=0)
             min1[r], min2[r], sgn[r] = m1, m2, sg
         vs = new_vs
@@ -311,11 +364,13 @@ def make_ms_decoder_layered(
     self_corrected: bool = True,
     device="cuda",
 ):
-    """Row-layered self-corrected min-sum decoder, plain PyTorch.
+    """Row-layered self-corrected min-sum decoder, plain PyTorch: the twin of
+    the JAX package's `make_ms_decoder_layered`.
 
-    Returns fn(llrs: (B, n) float32, int8 or int16) -> MSResult, run on
-    `device`. Positive LLRs favor bit 0. `alpha` (normalized min-sum, float32
-    only) scales the check magnitudes; None keeps the plain self-corrected
+    Returns fn(llrs: (B, n) float32, bfloat16, float64, int8 or int16) ->
+    MSResult, run on `device`. Positive LLRs favor bit 0. `alpha` (normalized
+    min-sum, float dtypes only; a bfloat16 alpha for bfloat16 LLRs, as the
+    twin's) scales the check magnitudes; None keeps the plain self-corrected
     min-sum. The int forms saturate messages and keep the posterior wide.
     """
     code = get_code(code)
@@ -326,7 +381,7 @@ def make_ms_decoder_layered(
     def decode(llrs) -> MSResult:
         llrs = torch.as_tensor(llrs, device=dev)
         check_llrs(llrs, n, alpha)
-        return layered_minsum_plain(s, llrs, maxiters, alpha, self_corrected)
+        return layered_minsum_plain(s, llrs, maxiters, alpha, self_corrected, round_alpha=True)
 
     return decode
 
@@ -338,10 +393,12 @@ def make_ms_decoder_qc(
     device="cuda",
 ):
     """Flooding self-corrected min-sum decoder (the reference's schedule),
-    plain PyTorch, float32.
+    plain PyTorch, float32/bfloat16/float64: the twin of the JAX package's
+    `make_ms_decoder_qc`.
 
-    Returns fn(llrs: (B, n) float32) -> MSResult, run on `device`; int8 and
-    int16 LLRs go to `make_ms_decoder_qc_int`.
+    Returns fn(llrs: (B, n) float) -> MSResult, run on `device`; int8 and
+    int16 LLRs go to `make_ms_decoder_qc_int`. With bfloat16 LLRs alpha is a
+    bfloat16, as the twin's.
     """
     code = get_code(code)
     dev = resolve_device(device)
@@ -351,10 +408,10 @@ def make_ms_decoder_qc(
     def decode(llrs) -> MSResult:
         llrs = torch.as_tensor(llrs, device=dev)
         if llrs.dtype in SAT_DTYPES:
-            raise ValueError("make_ms_decoder_qc takes float32 LLRs; int8/int16 go to "
+            raise ValueError("make_ms_decoder_qc takes float LLRs; int8/int16 go to "
                              "make_ms_decoder_qc_int")
-        check_llrs(llrs, n, alpha, (torch.float32,))
-        return flooding_minsum_plain(s, llrs, maxiters, alpha)
+        check_llrs(llrs, n, alpha, FLOAT_DTYPES)
+        return flooding_minsum_plain(s, llrs, maxiters, alpha, round_alpha=True)
 
     return decode
 

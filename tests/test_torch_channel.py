@@ -217,16 +217,18 @@ def test_bf_ber_anchor_bsc():
 @pytest.mark.parametrize(
     "build,match",
     [
-        (lambda: make_trial_step("TC128", 8, dtype_name="float64", device="cpu"), "Queue A5"),
-        (lambda: make_trial_step("TC128", 8, dtype_name="bfloat16", device="cpu"), "Queue A5"),
+        (lambda: make_trial_step("TC128", 8, dtype_name="float64", impl="cuda_layered",
+                                 device="cpu"), "float64 goes to impl='layered'"),
+        (lambda: make_trial_step("TC128", 8, dtype_name="bfloat16", llr_scale=16.0, device="cpu"),
+         "llr_scale"),
         (lambda: make_trial_step("TC128", 8, dtype_name="int32", impl="layered", device="cpu"),
          "impl='ref'"),
         (lambda: make_trial_step("TC128", 8, llr_scale=16.0, device="cpu"), "llr_scale"),
         (lambda: make_ms_hard_trial_step("TC128", 8, impl="sp_layered", device="cpu"),
          "true channel LLRs"),
         (lambda: make_trial_step("TC128", 8, impl="qc_i16", device="cpu"), "requires dtype"),
-        (lambda: make_trial_step("TC128", 8, dtype_name="bfloat16", impl="cuda_qc", device="cpu"),
-         "Queue A5"),
+        (lambda: make_trial_step("TC128", 8, dtype_name="bfloat16", impl="sp_layered",
+                                 device="cpu"), "float32 only"),
         (lambda: make_bf_trial_step("TC128", 8, impl="pallas", device="cpu"), "impl='cuda'"),
         (lambda: make_bf_trial_step("TC128", 8, impl="layered", device="cpu"), "auto|cuda|qc|gather"),
         (lambda: make_bf_trial_step("TC128", 8, channel="nope", device="cpu"), "bsc|bec"),

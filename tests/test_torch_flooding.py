@@ -102,9 +102,9 @@ def test_flooding_wrapper_on_cpu_launches_nothing():
 def test_flooding_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="make_ms_decoder_qc_int"):
         T.make_ms_decoder_qc("TC128", 5, device="cpu")(torch.zeros((2, 128), dtype=torch.int8))
-    with pytest.raises(ValueError, match="Queue A5"):
+    with pytest.raises(ValueError, match="float64 LLRs go to impl='layered'"):
         T.make_ms_decoder_cuda_qc("TC128", 5, device="cpu")(
-            torch.zeros((2, 128), dtype=torch.bfloat16))
+            torch.zeros((2, 128), dtype=torch.float64))
     with pytest.raises(ValueError, match="impl='ref'"):
         T.make_ms_decoder_cuda_qc("TC128", 5, device="cpu")(torch.zeros((2, 128), dtype=torch.int32))
     with pytest.raises(ValueError, match="alpha"):

@@ -111,8 +111,13 @@ def test_ref_refuses_what_it_does_not_take():
     dec = T.make_ms_decoder("TC128", 5, alpha=0.8, device="cpu")
     with pytest.raises(ValueError, match="alpha"):
         dec(torch.zeros((2, 128), dtype=torch.int32))
-    with pytest.raises(ValueError, match="Queue A5"):
-        T.make_ms_decoder("TC128", 5, device="cpu")(torch.zeros((2, 128), dtype=torch.float64))
+    # float64 and bfloat16 decode (zero LLRs satisfy every check at once);
+    # a dtype outside DecodeFrom's does not
+    for dtype in (torch.float64, torch.bfloat16):
+        dec = T.make_ms_decoder("TC128", 5, device="cpu")
+        assert dec(torch.zeros((2, 128), dtype=dtype)).success.all()
+    with pytest.raises(ValueError, match="takes float32/bfloat16/float64/int8/int16/int32"):
+        T.make_ms_decoder("TC128", 5, device="cpu")(torch.zeros((2, 128), dtype=torch.uint8))
     with pytest.raises(ValueError, match=r"\(B, 128\)"):
         T.make_ms_decoder("TC128", 5, device="cpu")(torch.zeros((2, 127)))
 
@@ -204,7 +209,7 @@ def test_registry_auto_table():
      ("layered", torch.int32, None, "impl='ref'"),
      ("cuda_layered", torch.int8, 0.8, "alpha"),
      ("ref", torch.int16, 0.8, "alpha"),
-     ("auto", torch.float64, None, "Queue A5"),
+     ("cuda_qc", torch.float64, None, "float64 goes to impl='layered'"),
      ("sp", torch.float32, 0.8, "does not take alpha")],
 )
 def test_registry_errors(impl, dtype, alpha, match):
@@ -226,7 +231,8 @@ def _run(fn, argv):
      (["--dtype", "int8", "--impl", "qc_i16"], True),
      (["--dtype", "int32", "--impl", "layered"], True),
      (["--decoder", "ms_hard", "--impl", "qc_i16"], True),
-     (["--dtype", "int32", "--impl", "cuda_qc"], False), (["--dtype", "bfloat16"], False),
+     (["--dtype", "int32", "--impl", "cuda_qc"], False),
+     (["--dtype", "float64", "--impl", "cuda_layered"], False),
      (["--llr-scale", "8"], False), (["--impl", "pallas_qc"], False)],
     ids=lambda v: " ".join(v) if isinstance(v, list) else str(v),
 )

@@ -101,8 +101,8 @@ def test_auto_resolves_per_device():
 @pytest.mark.parametrize(
     "impl,dtype,match",
     [
-        ("auto", torch.bfloat16, "Queue A5"),
-        ("auto", torch.float64, "Queue A5"),
+        ("sp_layered", torch.bfloat16, "float32 only"),
+        ("cuda_layered", torch.float64, "float64 goes to impl='layered'"),
         ("layered", torch.int32, "impl='ref'"),
         ("pallas_qc", torch.int8, "cuda_qc"),
         ("pallas_layered", torch.float32, "cuda_layered"),
