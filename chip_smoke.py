@@ -8,22 +8,29 @@ JAX package, and reads the CCSDS golden parity from tests/golden_vectors.py
 (plain data). Every phase is fatal on failure; nothing is caught.
 
   1. build every CUDA source of the port with nvcc, all at once (four);
+     print ptxas's registers and spills of every instance of the layered
+     kernel (four forms x 1, 2, 4 checks a thread) and fail on any spill;
   2. print the card's name and power limit (nvidia-smi);
   3. encoder on the card against the golden CCSDS parity of all nine codes;
   4. the layered min-sum kernel (float32) against its plain PyTorch version
      on the card, all nine codes, noisy LLRs where some frames fail (B=256,
-     maxiters=20), plus alpha=0.8 and maxiters 0/1 cases: identical bits,
-     success and iterations;
+     maxiters=20), alpha=0.8 on all nine codes, maxiters 0/1 cases and
+     B=257 and B=1: identical bits, success and iterations;
   5. the main path: 8 serving batches of TM8192, B=16384, 3 flipped bits in
      byte 0, maxiters=50, through encode -> hard_to_llrs -> decode_ms
-     (impl="auto"), every frame's data verified; then one int8 serving batch
-     (the same LLRs through quantize_llrs) and one bfloat16 serving batch
-     (the same LLRs cast) through decode_ms(impl="auto"), the int8 and bf16
-     forms of the layered kernel, each exactly one launch; launch counts are
-     reset just before and read just after each;
+     (impl="auto"), every frame's data verified, one launch of the float32
+     form per batch, and the peak device memory over the 8 batches
+     (max_memory_allocated after reset_peak_memory_stats); then one int8
+     serving batch (the same LLRs through quantize_llrs) and one bfloat16
+     serving batch (the same LLRs cast) through decode_ms(impl="auto"), the
+     int8 and bf16 forms of the layered kernel, each exactly one launch;
+     launch counts are reset just before and read just after each;
   6. TM8192 at 1.0 dB, B=256, maxiters=50 (deep iterations and failures):
      kernel against plain version, bit for bit;
-  7. times (CUDA events) of each kernel form and of its plain version at
+  7. the layered kernel's launch shape for every code and form (threads,
+     checks a thread, shared bytes, CTAs per SM as the card's occupancy
+     calculator reports them), which must equal launch_config; then
+     times (CUDA events) of each kernel form and of its plain version at
      its path's shapes, and each one's bound: the layered kernel (float32,
      int8, int16, bf16) and the flooding kernel (float32, bf16, int8, int16)
      at TM8192,
@@ -85,6 +92,7 @@ from __future__ import annotations
 import csv
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import time
@@ -186,6 +194,23 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+def ptxas_functions(log: str, kernel: str) -> dict[str, tuple[str, str]]:
+    """The register and spill lines that `nvcc -Xptxas -v` printed for each
+    instance of a kernel template, by instance ("kernel<form, checks>")."""
+    types = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "i8", "s": "i16"}
+    out, name, spill = {}, None, ""
+    for line in log.splitlines():
+        m = re.search(rf"Function properties for \S*{kernel}I(\w+?)Li(\d+)E", line)
+        if m:
+            name, spill = f"{kernel}<{types.get(m.group(1), m.group(1))}, {m.group(2)}>", ""
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            out[name] = (line.split(":", 1)[-1].strip(), spill)
+            name = None
+    return out
+
+
 def phase(name: str):
     print(f"== {name}", flush=True)
 
@@ -217,9 +242,20 @@ def main() -> None:
     print(f"built in {time.perf_counter() - t0:.2f} s")
     for source, b in zip(sources, builds):
         print(f"  {source}: nvcc {b.seconds:.2f} s -> {b.path.name}")
+        if source == cuda_layered.SOURCE:
+            continue
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"    {line.strip()}")
+    # the layered kernel's instances (form x checks a thread) must not spill
+    layered_log = dict(zip(sources, builds))[cuda_layered.SOURCE].log
+    layered_fns = ptxas_functions(layered_log, "layered_minsum_kernel")
+    for name, (regs, spill) in sorted(layered_fns.items()):
+        print(f"    {name}: {regs}; {spill}")
+        if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", spill):
+            fail(f"{name} spills registers: {spill}")
+    if len(layered_fns) != len(cuda_layered.FORMS) * len(cuda_layered.CHECKS_PER_THREAD):
+        fail(f"ptxas reported {len(layered_fns)} layered_minsum instances")
     cuda_layered._lib()  # load the libraries and declare the C signatures
     cuda_qc._lib()
     cuda_bf._lib()
@@ -326,12 +362,15 @@ def main() -> None:
         got = hold(f"{code} noisy", code, llrs, 20)
         if not 0 < int(got.success.sum()) < 256:
             fail(f"{code}: want a batch where some frames fail and some converge")
-    for code, alpha in (("TM8192", 0.8), ("TC256", 0.8)):
-        c = T.get_code(code)
-        hold(f"{code} alpha={alpha}", c, noisy_llrs(c, 256, PARTIAL_EBN0[code] + 0.5, 7), 20, alpha)
+    # the kernel replays the alpha product when it rebuilds u_old: every code
+    for c in T.ALL_CODES:
+        hold(f"{c} alpha=0.8", c, noisy_llrs(c, 256, PARTIAL_EBN0[c.value] + 0.5, 7), 20, 0.8)
     for code, maxiters in (("TM8192", 1), ("TM1280", 1), ("TM5120", 0)):
         c = T.get_code(code)
         hold(f"{code} maxiters={maxiters}", c, noisy_llrs(c, 64, PARTIAL_EBN0[code], 9), maxiters)
+    for code, nb in (("TM2048", 257), ("TC256", 257), ("TM6144", 1)):
+        c = T.get_code(code)
+        hold(f"{code} B={nb}", c, noisy_llrs(c, nb, PARTIAL_EBN0[code], 13), 20)
     # the card's plain version agrees with the CPU's (which the CPU tests pin
     # to the JAX twin)
     c = T.get_code("TM1536")
@@ -352,6 +391,8 @@ def main() -> None:
         fail("impl='auto' does not resolve to the CUDA kernel on the card")
     T.decode_ms(code, T.hard_to_llrs(T.encode(code, batches[0][:8])), maxiters=maxiters)  # warm
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_bytes = torch.cuda.memory_allocated(dev)
     reset_launches()
     stages = ("copy in", "encode", "corrupt+llrs", "decode", "verify")
     stage_ms = dict.fromkeys(stages, 0.0)
@@ -381,13 +422,17 @@ def main() -> None:
             stage_ms[name] += ev[i].elapsed_time(ev[i + 1])
     wall = time.perf_counter() - t0
     main_launches = cuda_layered.launches
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
     print(f"  {frames} frames verified in {wall:.3f} s ({frames / wall:.1f} frames/s end to end, "
           f"host data included); mean iteration of convergence {iters_sum / frames:.3f}")
     print(f"  per batch (CUDA events, mean of {n_batches}): " + ", ".join(
         f"{name} {ms / n_batches:.3f} ms" for name, ms in stage_ms.items()))
+    print(f"  peak device memory over the {n_batches} batches (max_memory_allocated after "
+          f"reset_peak_memory_stats): {peak_bytes} B ({peak_bytes / 1e9:.3f} GB; "
+          f"{base_bytes} B allocated before the first batch); {smi}")
     print(f"  launches of layered_minsum_f32 on the main path: {main_launches}")
-    if main_launches < 1:
-        fail("the main path did not launch the CUDA kernel")
+    if main_launches != n_batches or cuda_layered.form_launches["f32"] != n_batches:
+        fail("the main path did not run one launch of layered_minsum_f32 per batch")
 
     # the same batch as 8-bit soft bits: quantize_llrs (scale 16) -> decode_ms
     if T.resolve_impl(code, torch.int8, "auto") != "cuda_layered":
@@ -410,8 +455,8 @@ def main() -> None:
           f"{int8_serving_launches}")
     if not ok:
         fail("an int8 serving frame did not decode to the data sent")
-    if int8_serving_launches < 1:
-        fail("the int8 serving batch did not launch the int8 form of the layered kernel")
+    if int8_serving_launches != 1 or cuda_layered.launches != 1:
+        fail("the int8 serving batch did not run on one launch of layered_minsum_i8")
 
     # the same batch as bfloat16 LLRs: the bf16 form of the layered kernel
     if T.resolve_impl(code, torch.bfloat16, "auto") != "cuda_layered":
@@ -496,11 +541,26 @@ def main() -> None:
               f"{sweeps / nb:.3f} per codeword); in/out bytes {io_bytes}; ops {ops}; bound "
               f"{row['bound_ms']:.4f} ms (bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms)")
         if kind == "layered":
-            state_bytes = 4 * p.paritycheck_sum * llrs.element_size() * sweeps + io_bytes
-            print(f"  {label}: u/t' state traffic {state_bytes} B, computed from the shapes and "
-                  f"sweeps: {state_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at the assumed peak of "
-                  f"{HBM_BYTES_PER_S:.3g} B/s (not measured)")
+            print(f"  {label}: launch shape {layered_shape(c, llrs.dtype)}")
         return row
+
+    def layered_shape(c, dtype) -> dict:
+        """The layered kernel's launch shape for code c and a dtype form, its
+        CTAs per SM as the card's occupancy calculator reports them; fails
+        unless that equals launch_config."""
+        cfg = cuda_layered.launch_config(c, dtype)
+        card = cuda_layered.card_ctas_per_sm(c, dtype)
+        if card != cfg["ctas_per_sm"]:
+            fail(f"{c} {forms[dtype]}: {card} CTAs per SM on the card, launch_config says "
+                 f"{cfg['ctas_per_sm']}")
+        return cfg
+
+    print("  layered kernel launch shapes (threads, checks a thread, shared bytes, CTAs per SM "
+          "from cudaOccupancyMaxActiveBlocksPerMultiprocessor == launch_config):")
+    for c in T.ALL_CODES:
+        print(f"    {c.value:6s} " + "; ".join(
+            f"{forms[dt]} {cfg['threads']}x{cfg['checks_per_thread']} {cfg['smem_bytes']} B "
+            f"{cfg['ctas_per_sm']}/SM" for dt in forms for cfg in [layered_shape(c, dt)]))
 
     def three_flip_llrs(c, data_np, dtype=torch.float32):
         cw = T.encode(c, torch.from_numpy(data_np).to(dev))

@@ -12,6 +12,11 @@ On a CPU tensor the wrapper runs the plain version
 or raises. `launches` counts kernel launches and nothing else;
 `form_launches` splits the same count by dtype form ("f32", "bf16", "i8",
 "i16"). float64 LLRs raise a ValueError, as the TPU kernels refuse them.
+
+The kernel keeps a codeword's whole state in shared memory and allocates
+nothing; the wrapper allocates the outputs only. Its launch shape comes from
+`launch_config` (plain Python, no card needed), and the addend table from
+`addend_descriptors`; the C side checks both against the code.
 """
 
 from __future__ import annotations
@@ -30,12 +35,24 @@ from .minsum import MSResult
 from .qc_minsum import KERNEL_DTYPES, check_llrs, layered_minsum_plain
 
 __all__ = ["make_ms_decoder_cuda_layered", "layered_minsum", "addend_table", "column_order",
-           "FORMS", "SOURCE"]
+           "addend_descriptors", "launch_config", "card_ctas_per_sm", "FORMS", "SOURCE"]
 
 SOURCE = "layered_minsum.cu"
 
 # the kernels' dtype forms: the suffix of each C entry point
 FORMS = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "i8", torch.int16: "i16"}
+
+# H100 (sm_90) shared memory: an SM's 228 KiB, the runtime's 1 KiB reserved
+# per resident CTA, and the 227 KiB one CTA can address
+SM_SHARED_BYTES = 233_472
+CTA_RESERVED_BYTES = 1_024
+CTA_SHARED_MAX = 232_448
+MAX_CTAS_PER_SM = 32
+# threads an SM runs at the kernel's register budget: __launch_bounds__(1024)
+# gives a thread at most 64 of the SM's 65,536 registers
+THREADS_PER_SM = 1_024
+MAX_THREADS = 1_024
+CHECKS_PER_THREAD = (1, 2, 4)  # the kernel's instances
 
 # kernel launches since import; read and reset as `cuda_layered.launches`
 launches = 0
@@ -66,12 +83,90 @@ def column_order(table: np.ndarray, n_block_cols: int) -> tuple[np.ndarray, np.n
 
 @lru_cache(maxsize=None)
 def _device_tables(code: LDPCCode, device: torch.device):
+    """`addend_table` on the device, for the kernels that read it there."""
     s = qc_structure(code)
-    # the kernel's perm_index reduces mod M and mod M/4 with masks
+    # perm_index reduces mod M and mod M/4 with masks
     if s.m & (s.m - 1) or s.m % 4:
-        raise ValueError(f"the CUDA layered kernel needs a power-of-two M, {code} has {s.m}")
+        raise ValueError(f"the CUDA kernels need a power-of-two M, {code} has {s.m}")
     table, off = addend_table(s)
     return torch.as_tensor(table, device=device), torch.as_tensor(off, device=device)
+
+
+def addend_descriptors(s: QCStructure) -> np.ndarray:
+    """The layered kernel's view of `qc_structure`: (sumA, 2) int32 words per
+    addend, which its threads keep in registers.
+
+    lo = col | kind << 4 | theta << 5 | s0 << 7 | run_end << 19, with kind 0
+    for a rotation (s0 its shift mod M) and 1 for a pi permutation (s0 its
+    phi0 mod M/4); hi = phi1 | phi2 << 10 | phi3 << 20 (mod M/4; 0 for a
+    rotation). A layer's addends fall into runs on distinct block columns: a
+    run ends before an addend whose column the run has written already, and
+    `run_end` is the index of the addend after this one's run. Pass 2 of the
+    kernel synchronises between runs, and only there."""
+    m, q = s.m, s.m // 4
+    out, ends, e = [], [], 0
+    for row in s.rows:
+        written: set[int] = set()
+        for p in row:
+            if p.col in written:  # a new run starts here
+                ends.extend([e] * (len(out) - len(ends)))
+                written = set()
+            written.add(p.col)
+            if p.kind == "rot":
+                s0, hi = p.shift % m, 0
+            else:
+                phis = [phi % q for phi in p.phis]
+                s0, hi = phis[0], phis[1] | phis[2] << 10 | phis[3] << 20
+            kind = 0 if p.kind == "rot" else 1
+            out.append((p.col | kind << 4 | p.theta << 5 | s0 << 7, hi))
+            e += 1
+        ends.extend([e] * (len(out) - len(ends)))
+    return np.asarray([(lo | end << 19, hi) for (lo, hi), end in zip(out, ends)], dtype=np.int32)
+
+
+def _shape(code: LDPCCode) -> tuple[int, int, int, int, int]:
+    """M, R, Cc, sumA and the widest layer's addend count of `code`."""
+    s = qc_structure(code)
+    return s.m, s.n_block_rows, s.n_block_cols, sum(map(len, s.rows)), max(map(len, s.rows))
+
+
+def launch_config(code: LDPCCode | str, dtype: torch.dtype = torch.float32) -> dict:
+    """The kernel's launch shape for `code` and an LLR dtype, on an H100:
+    threads and checks a thread per CTA (one CTA per codeword), its dynamic
+    shared bytes, and the CTAs that fit on one SM.
+
+    Shared bytes: the posteriors (Cc*M of 4 bytes, of 2 in the bf16 form),
+    t' (sumA*M), m1 and m2 (2*R*M, all of the LLRs' type) and the sign
+    products (R*M bytes). The threads are the largest power of two, at most M
+    (at least one warp) and 1024, that keeps the CTAs shared memory allows
+    within THREADS_PER_SM, so that registers hold no fewer CTAs on an SM than
+    shared memory does; but a thread takes at most four checks (more spill
+    registers), and where that needs more threads (TM2048 int8), the
+    register budget sets the CTAs an SM holds."""
+    code = get_code(code)
+    if dtype not in FORMS:
+        raise ValueError(f"the CUDA layered kernel takes {list(FORMS)}, got {dtype}")
+    M, R, Cc, sumA, _ = _shape(code)
+    size = torch.empty((), dtype=dtype).element_size()
+    va_size = 2 if dtype == torch.bfloat16 else 4
+    smem = Cc * M * va_size + (sumA + 2 * R) * M * size + R * M
+    if smem > CTA_SHARED_MAX:
+        raise ValueError(f"{code} needs {smem} B of shared memory, over {CTA_SHARED_MAX}")
+    ctas = min(MAX_CTAS_PER_SM, SM_SHARED_BYTES // (smem + CTA_RESERVED_BYTES))
+    budget = THREADS_PER_SM // ctas
+    threads = max(32, M // CHECKS_PER_THREAD[-1],
+                  min(M, MAX_THREADS, 1 << (budget.bit_length() - 1)))
+    return dict(threads=threads, checks_per_thread=max(1, M // threads), smem_bytes=smem,
+                ctas_per_sm=min(ctas, THREADS_PER_SM // threads))
+
+
+@lru_cache(maxsize=None)
+def _kernel_tables(code: LDPCCode, device: torch.device):
+    """The packed addends and the (R+1,) layer offsets on the device."""
+    s = qc_structure(code)
+    _, off = addend_table(s)
+    return (torch.as_tensor(addend_descriptors(s), device=device),
+            torch.as_tensor(off, device=device))
 
 
 @lru_cache(maxsize=None)
@@ -80,39 +175,49 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for form in FORMS.values():
         fn = getattr(lib, f"layered_minsum_{form}")
-        fn.argtypes = [ptr] * 8 + [i32] * 8 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 6 + [i32] * 9 + [ctypes.c_float] + [i32] * 3 + [ptr]
         fn.restype = i32
+        occ = getattr(lib, f"layered_minsum_{form}_ctas_per_sm")
+        occ.argtypes = [i32] * 8 + [ctypes.POINTER(i32)]
+        occ.restype = i32
     return lib
+
+
+def card_ctas_per_sm(code: LDPCCode | str, dtype: torch.dtype = torch.float32) -> int:
+    """The CTAs of `launch_config(code, dtype)` that fit on one SM of the
+    current card, as the CUDA runtime's occupancy calculator reports them."""
+    code = get_code(code)
+    cfg = launch_config(code, dtype)
+    out = ctypes.c_int()
+    err = getattr(_lib(), f"layered_minsum_{FORMS[dtype]}_ctas_per_sm")(
+        *_shape(code), cfg["threads"], cfg["checks_per_thread"], cfg["smem_bytes"],
+        ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"layered_minsum_{FORMS[dtype]}_ctas_per_sm failed with CUDA error {err}")
+    return out.value
 
 
 def _launch(code: LDPCCode, llrs: torch.Tensor, maxiters: int, alpha: float | None) -> MSResult:
     global launches
-    s = qc_structure(code)
-    M, R, Cc = s.m, s.n_block_rows, s.n_block_cols
-    V = Cc * M
+    M, R, Cc, sumA, row_max = _shape(code)
     B, n = llrs.shape
     dev = llrs.device
     llrs = llrs.contiguous()
-    bits = torch.empty((B, V), dtype=torch.uint8, device=dev)
+    bits = torch.empty((B, Cc * M), dtype=torch.uint8, device=dev)
     success = torch.empty((B,), dtype=torch.bool, device=dev)
     iterations = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return MSResult(success, iterations, bits)
-    table, off = _device_tables(code, dev)
-    sumA = table.shape[0]
-    # per-edge state lives in device memory, in the LLRs' dtype (bfloat16 for
-    # the bf16 form; module docstring of the source); iteration 0 is peeled
-    # inside the kernel, so no zeroing
-    u = torch.empty((B, sumA, M), dtype=llrs.dtype, device=dev)
-    tp = torch.empty((B, sumA, M), dtype=llrs.dtype, device=dev)
+    desc, off = _kernel_tables(code, dev)
+    cfg = launch_config(code, llrs.dtype)
     form = FORMS[llrs.dtype]
     fn = getattr(_lib(), f"layered_minsum_{form}")
     with torch.cuda.device(dev):
         err = fn(
             llrs.data_ptr(), bits.data_ptr(), success.data_ptr(), iterations.data_ptr(),
-            u.data_ptr(), tp.data_ptr(), table.data_ptr(), off.data_ptr(),
-            B, n, M, R, Cc, sumA, maxiters, 0 if alpha is None else 1,
-            0.0 if alpha is None else float(alpha),
+            desc.data_ptr(), off.data_ptr(), B, n, M, R, Cc, sumA, row_max, maxiters,
+            0 if alpha is None else 1, 0.0 if alpha is None else float(alpha),
+            cfg["threads"], cfg["checks_per_thread"], cfg["smem_bytes"],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
