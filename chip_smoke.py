@@ -1,16 +1,28 @@
 """Drive the PyTorch + CUDA port's main path on one NVIDIA H100 and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
 repository checkout: it imports labrador_ldpc_tpu_torch and nothing of the
 JAX package, and reads the CCSDS golden parity from tests/golden_vectors.py
-(plain data). Every phase is fatal on failure; nothing is caught.
+(plain data). Every phase is fatal on failure; nothing is caught. With
+--parent DIR (a checkout of another commit, e.g. `git archive` of the parent
+unpacked into a gitignored directory), phase 7 also times that checkout's
+sum-product kernel, in turns with this one's, on the same inputs, and phase
+13 drives its `sp_layered` point on the same draws, which must give the
+same frame errors.
 
   1. build every CUDA source of the port with nvcc, all at once (four);
-     print ptxas's registers and spills of every instance of the layered
-     kernel (four forms x 1, 2, 4 checks a thread) and fail on any spill;
-  2. print the card's name and power limit (nvidia-smi);
+     print ptxas's registers, stack frame and spills of every instance of the
+     layered min-sum kernel (four forms x 1, 2, 4 checks a thread) and of the
+     sum-product kernel (checks a thread x widest row, ops/cuda_sp.py
+     INSTANCES), and fail on any spill, or on a stack frame of the
+     sum-product kernel, whose phi values must stay in registers; count the
+     SASS (cuobjdump -sass) of the TM8192 sum-product instance per edge
+     visit in pass 1, pass 2 and the syndrome, and its MUFU instructions per
+     phi;
+  2. print the card's name and power limit (nvidia-smi), its SMs and its
+     largest SM clock;
   3. encoder on the card against the golden CCSDS parity of all nine codes;
   4. the layered min-sum kernel (float32) against its plain PyTorch version
      on the card, all nine codes, noisy LLRs where some frames fail (B=256,
@@ -40,7 +52,11 @@ JAX package, and reads the CCSDS golden parity from tests/golden_vectors.py
      (the decode_bf protocol, benches/decode.rs:22-37), on a BSC(p=0.006)
      batch where failing frames run deep, and at TM1536 on 3 flips; the
      layered sum-product kernel at TM8192, Eb/N0 0.9 dB, B=8192, maxiters
-     100 (true LLRs 2y/sigma^2), and at TM1536, Eb/N0 2.0 dB;
+     100 (true LLRs 2y/sigma^2), and at TM1536, Eb/N0 2.0 dB, each with its
+     launch shape (the card's CTAs per SM must equal launch_config's) and
+     barriers per iteration, at TM8192 with the issue floor of its SASS
+     count (instructions an edge visit x edge visits / 32 at four warp
+     instructions an SM a clock) and its MUFU floor;
   8. the bit-flip kernel against its plain PyTorch version on the card, all
      nine codes (B=256, 1-6 flips plus heavy corruption on half the batch,
      maxiters=20), clean codewords, maxiters 0 and 1, odd batch sizes, and
@@ -67,7 +83,8 @@ JAX package, and reads the CCSDS golden parity from tests/golden_vectors.py
  12. the layered sum-product kernel against its plain version on the card,
      all nine codes (B=256, maxiters 20, true LLRs where some frames fail and
      some converge), clean batches, maxiters 0 and 1, B=257 and B=1: identical
-     bits, success and iterations; its launch shape per code; and once
+     bits, success and iterations; its launch shape per code, with the
+     card's CTAs per SM held to launch_config's; and once
      against the plain version on the CPU, within the CPU tests' tolerance
      (tests/test_torch_sumproduct.py: PyTorch's CPU exp/log are not the
      card's);
@@ -89,7 +106,9 @@ Then one JSON line `{"kernels": [...]}`; the last line is
 
 from __future__ import annotations
 
+import argparse
 import csv
+import importlib
 import importlib.util
 import json
 import re
@@ -194,15 +213,23 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def ptxas_functions(log: str, kernel: str) -> dict[str, tuple[str, str]]:
-    """The register and spill lines that `nvcc -Xptxas -v` printed for each
-    instance of a kernel template, by instance ("kernel<form, checks>")."""
+def instance_name(kernel: str, args: str) -> str:
+    """A kernel template's instance from the mangled template arguments:
+    "kernel<form, checks>" or "kernel<checks, widest row>"."""
     types = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "i8", "s": "i16"}
+    form = re.sub(r"Li\d+E", "", args)
+    parts = ([types.get(form, form)] if form else []) + re.findall(r"Li(\d+)E", args)
+    return f"{kernel}<{', '.join(parts)}>"
+
+
+def ptxas_functions(log: str, kernel: str) -> dict[str, tuple[str, str]]:
+    """The register and stack/spill lines that `nvcc -Xptxas -v` printed for
+    each instance of a kernel template, by instance (`instance_name`)."""
     out, name, spill = {}, None, ""
     for line in log.splitlines():
-        m = re.search(rf"Function properties for \S*{kernel}I(\w+?)Li(\d+)E", line)
+        m = re.search(rf"Function properties for \S*{kernel}I(\w+?)EEv", line)
         if m:
-            name, spill = f"{kernel}<{types.get(m.group(1), m.group(1))}, {m.group(2)}>", ""
+            name, spill = instance_name(kernel, m.group(1)), ""
         elif name and "spill" in line:
             spill = line.strip()
         elif name and "registers" in line:
@@ -211,11 +238,81 @@ def ptxas_functions(log: str, kernel: str) -> dict[str, tuple[str, str]]:
     return out
 
 
+def sass_counts(so: Path, kernel: str, K: int, width: int) -> dict | None:
+    """Static SASS instruction counts of one instance of the sum-product
+    kernel (K checks a thread, rows of `width` addends), from `cuobjdump
+    -sass` of the built library, cut at its barriers: pass 1 runs from the
+    initialisation's BAR.SYNC to the next, pass 2 from there to the last
+    BAR.SYNC before the syndrome's BAR.RED, the syndrome from there to
+    BAR.RED. Both passes and the syndrome's row are unrolled over j < width,
+    so a region's count over K*width is its instructions per edge visit of a
+    full row, its loop overhead included, counting both arms of every branch
+    (the rotation's and the pi permutation's index, the division's rarely
+    taken slow-path call), so an upper estimate of what a visit issues; pass
+    1's MUFU instructions over K*width are those of one phi. None (with the
+    reason printed) if the SASS is not cut so."""
+    from labrador_ldpc_tpu_torch.ops import _nvcc
+
+    tool = Path(_nvcc._nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    want = f"{kernel}ILi{K}ELi{width}EEEv"
+    ops, inside = [], False
+    for line in dump.splitlines():
+        if "Function :" in line:
+            inside = want in line
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line) if inside else None
+        if m:
+            toks = [t for t in m.group(1).split() if not t.startswith("@")]
+            ops.append(toks[0] if toks else "")
+    label = f"{kernel}<{K}, {width}>"
+    syncs = [i for i, op in enumerate(ops) if op.startswith("BAR") and ".RED" not in op]
+    reds = [i for i, op in enumerate(ops) if op.startswith("BAR.RED")]
+    if len(syncs) != width + 2 or len(reds) != 1 or syncs[-1] > reds[0]:
+        print(f"  SASS of {label}: {len(ops)} instructions, BAR.SYNC at {syncs}, BAR.RED at "
+              f"{reds}: not the expected {width + 2} BAR.SYNC before one BAR.RED; no count")
+        return None
+    visits = K * width
+    cuts = {"pass 1": (syncs[0], syncs[1]), "pass 2": (syncs[1], syncs[-1]),
+            "syndrome": (syncs[-1], reds[0])}
+    out = {name: (b - a - 1) / visits for name, (a, b) in cuts.items()}
+    mufu: dict[str, int] = {}
+    for op in ops[syncs[0] + 1 : syncs[1]]:
+        if op.startswith("MUFU"):
+            mufu[op] = mufu.get(op, 0) + 1
+    out["mufu_per_phi"] = {op: n / visits for op, n in sorted(mufu.items())}
+    print(f"  SASS of {label}: {len(ops)} instructions ({len(ops) - reds[0] - 1} after the "
+          f"syndrome's BAR.RED: the output loop and the division's slow path); per edge visit "
+          f"of a {width}-addend row: pass 1 {out['pass 1']:.2f}, pass 2 {out['pass 2']:.2f}, "
+          f"syndrome {out['syndrome']:.2f} instructions; MUFU per phi {out['mufu_per_phi']}")
+    return out
+
+
 def phase(name: str):
     print(f"== {name}", flush=True)
 
 
+def load_parent(root: Path):
+    """The port package of another checkout (the parent commit), imported as
+    `parent_port` beside this one; it builds its kernels from its own
+    sources, into its own checkout."""
+    pkg = root.resolve() / "labrador_ldpc_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_port"] = mod
+    spec.loader.exec_module(mod)
+    importlib.import_module("parent_port.ops.cuda_sp")
+    return mod
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of the parent commit: phases 7 and 13 time its sum-product "
+                         "kernel in turns with this one's, on the same inputs")
+    args = ap.parse_args()
     import numpy as np
     import torch
 
@@ -240,22 +337,47 @@ def main() -> None:
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         builds = list(pool.map(_nvcc.build, sources))
     print(f"built in {time.perf_counter() - t0:.2f} s")
+    templated = {cuda_layered.SOURCE: "layered_minsum_kernel", cuda_sp.SOURCE: "sumproduct_kernel"}
     for source, b in zip(sources, builds):
         print(f"  {source}: nvcc {b.seconds:.2f} s -> {b.path.name}")
-        if source == cuda_layered.SOURCE:
+        if source in templated:
             continue
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"    {line.strip()}")
-    # the layered kernel's instances (form x checks a thread) must not spill
-    layered_log = dict(zip(sources, builds))[cuda_layered.SOURCE].log
-    layered_fns = ptxas_functions(layered_log, "layered_minsum_kernel")
-    for name, (regs, spill) in sorted(layered_fns.items()):
-        print(f"    {name}: {regs}; {spill}")
-        if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", spill):
-            fail(f"{name} spills registers: {spill}")
-    if len(layered_fns) != len(cuda_layered.FORMS) * len(cuda_layered.CHECKS_PER_THREAD):
-        fail(f"ptxas reported {len(layered_fns)} layered_minsum instances")
+    # the templated kernels' instances must not spill: the layered min-sum
+    # kernel's (form x checks a thread) and the sum-product kernel's (checks a
+    # thread x widest row), whose phi values must stay in registers, so no
+    # stack frame either
+    built = dict(zip(sources, builds))
+    sp_regs = {}  # registers of each sum-product instance, by widest row
+    for source, kernel in templated.items():
+        fns = ptxas_functions(built[source].log, kernel)
+        for name, (regs, spill) in sorted(fns.items()):
+            print(f"    {name}: {regs}; {spill}")
+            if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", spill):
+                fail(f"{name} spills registers: {spill}")
+            if source == cuda_sp.SOURCE:
+                if not spill.startswith("0 bytes stack frame"):
+                    fail(f"{name} has a stack frame: {spill}")
+                k, w = map(int, re.findall(r"\d+", name))
+                if cuda_sp.INSTANCES.get(w) != k:
+                    fail(f"{name} is not the instance of cuda_sp.INSTANCES for rows of {w}")
+                # the card's CTAs per SM follow from them (cuda_sp.launch_config)
+                sp_regs[w] = int(re.search(r"Used (\d+) registers", regs).group(1))
+        want = (len(cuda_layered.FORMS) * len(cuda_layered.CHECKS_PER_THREAD)
+                if source == cuda_layered.SOURCE else len(cuda_sp.INSTANCES))
+        if len(fns) != want:
+            fail(f"ptxas reported {len(fns)} {kernel} instances, want {want}")
+    sp_sass = sass_counts(built[cuda_sp.SOURCE].path, "sumproduct_kernel", cuda_sp.INSTANCES[6], 6)
+    parent = parent_sp = None
+    if args.parent is not None:
+        parent = load_parent(args.parent)
+        parent_sp = parent.ops.cuda_sp
+        t0 = time.perf_counter()
+        parent_sp._lib()
+        print(f"  the parent's {cuda_sp.SOURCE} ({args.parent}) built and loaded in "
+              f"{time.perf_counter() - t0:.2f} s")
     cuda_layered._lib()  # load the libraries and declare the C signatures
     cuda_qc._lib()
     cuda_bf._lib()
@@ -284,6 +406,12 @@ def main() -> None:
     print(smi)
     card_kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card_kind}")
+    sm_clock_mhz = int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"{n_sms} SMs, SM clock at most {sm_clock_mhz} MHz")
 
     # ---- 3. encoder -----------------------------------------------------------
     phase("3 encoder vs golden CCSDS parity")
@@ -657,14 +785,20 @@ def main() -> None:
 
     def measure_sp(label, c, llrs, mi):
         """The sum-product kernel and its plain version in turns on (B, n) true
-        LLRs of code c; returns the numbers of one row."""
+        LLRs of code c (with --parent, the parent's kernel too: plain, parent,
+        kernel, kernel, parent, plain); returns the numbers of one row."""
         nonlocal sp_max_err
         s = qc_structure(c)
         plain = lambda: layered_sp_plain(s, llrs, mi)  # noqa: E731
         kern = lambda: cuda_sp.layered_sp(c, llrs, mi)  # noqa: E731
+        old = parent_sp and (lambda: parent_sp.layered_sp(c.value, llrs, mi))  # its own codes
         plain_a, want = time_ms(plain, 1)
+        if old:
+            parent_a, prev = time_ms(old, 3)
         kern_a, got = time_ms(kern, 3)
         kern_b, _ = time_ms(kern, 3)
+        if old:
+            parent_b, _ = time_ms(old, 3)
         plain_b, _ = time_ms(plain, 1)
         err = max_diff(got, want)
         sp_max_err = max(sp_max_err, err)
@@ -675,7 +809,8 @@ def main() -> None:
         p = c.params
         nb = llrs.shape[0]
         io_bytes = nb * p.n * 4 + nb * p.n_vars + 5 * nb
-        ops = SP_OPS_PER_EDGE_ITER * p.paritycheck_sum * sweeps
+        edge_iters = p.paritycheck_sum * sweeps
+        ops = SP_OPS_PER_EDGE_ITER * edge_iters
         bytes_ms, ops_ms = io_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
         row = dict(
             ms=min(kern_a, kern_b), plain_ms=min(plain_a, plain_b),
@@ -684,11 +819,43 @@ def main() -> None:
         )
         print(f"  {label}: kernel {kern_a:.4f} / {kern_b:.4f} ms per decode -> "
               f"{nb / row['ms'] * 1e3:.1f} cw/s; plain {plain_a:.4f} / {plain_b:.4f} ms")
+        if old:
+            print(f"  {label}: parent's kernel {parent_a:.4f} / {parent_b:.4f} ms per decode "
+                  f"(max|diff| against the plain version {max_diff(prev, want)}); kernel/parent "
+                  f"{row['ms'] / min(parent_a, parent_b):.4f}")
         print(f"  {label}: converged {int(got.success.sum())}/{nb}; sweeps {sweeps} (mean "
               f"{sweeps / nb:.3f}, max {int(per_cw.max())} per codeword); in/out bytes "
               f"{io_bytes}; ops {ops}; bound {row['bound_ms']:.4f} ms (bytes {bytes_ms:.4f} ms, "
-              f"operations {ops_ms:.4f} ms); launch shape {cuda_sp.launch_config(c)}")
+              f"operations {ops_ms:.4f} ms)")
+        print(f"  {label}: launch shape {sp_shape(c)}")
+        if c.value == "TM8192" and sp_sass:
+            # what bounds the kernel: its SASS per edge visit at one warp
+            # instruction a clock on each of an SM's four schedulers, and its
+            # MUFU instructions (two phi an edge) at 16 an SM a clock
+            instr = sp_sass["pass 1"] + sp_sass["pass 2"] + sp_sass["syndrome"]
+            rate = n_sms * sm_clock_mhz * 1e6
+            issue_ms = instr * edge_iters / 32 / (4 * rate) * 1e3
+            mufu = 2 * sum(sp_sass["mufu_per_phi"].values())
+            mufu_ms = mufu * edge_iters / (16 * rate) * 1e3
+            print(f"  {label}: SASS issue floor {issue_ms:.4f} ms ({instr:.2f} instructions an "
+                  f"edge visit, {edge_iters} edge visits, {n_sms} SMs at {sm_clock_mhz} MHz, 4 "
+                  f"warp instructions an SM a clock); MUFU floor {mufu_ms:.4f} ms ({mufu:.2f} an "
+                  f"edge visit); kernel/issue floor {row['ms'] / issue_ms:.3f}")
         return row
+
+    def sp_shape(c) -> dict:
+        """The sum-product kernel's launch shape for code c and its barriers
+        per iteration; fails unless the card's occupancy calculator gives
+        launch_config's CTAs per SM."""
+        regs = sp_regs[max(len(row) for row in qc_structure(c).rows)]
+        cfg = cuda_sp.launch_config(c, registers=regs)
+        card = cuda_sp.card_ctas_per_sm(c)
+        if card != cfg["ctas_per_sm"]:
+            fail(f"{c} sum-product: {card} CTAs per SM on the card, launch_config at {regs} "
+                 f"registers says {cfg['ctas_per_sm']}")
+        s = qc_structure(c)
+        runs = len({(int(lo) >> 19) & 63 for lo, _ in cuda_layered.addend_descriptors(s)})
+        return dict(cfg, registers=regs, barriers_per_iteration=s.n_block_rows + runs + 1)
 
     # the sum-product slice's shapes: TM8192 at its waterfall anchor (the TPU
     # kernel B7's shape, M >= 512), TM1536 (M <= 256, where the JAX package
@@ -980,7 +1147,7 @@ def main() -> None:
         got = hold_sp(f"{c} mixed", c, sp_mixed(c, 256, 120 + i), 20)
         if not 0 < int(got.success.sum()) < 256:
             fail(f"{c}: want a batch where some frames fail and some converge")
-        print(f"    launch shape {cuda_sp.launch_config(c)}")
+        print(f"    launch shape {sp_shape(c)}")
     for name in ("TM8192", "TC128"):
         c = T.get_code(name)
         got = hold_sp(f"{name} clean", c, card_true_llrs(c, 64, 100.0, 5), 20)
@@ -1054,6 +1221,18 @@ def main() -> None:
             fail(f"{impl}: want {want_sp} sumproduct_f32 launches and no other kernel")
         if impl == "sp_layered":
             sp_launches = point_launches["sumproduct_f32"]
+        if impl == "sp_layered" and parent is not None:
+            # the parent's kernel on the same draws, in turns: parent, parent
+            # (warm), this one again
+            again = [fn(name, [x], batch=8192, maxiters=100, max_bits=1, max_bit_errors=10**9,
+                        noise_model="ebn0", impl=impl, seed=0, device="cuda")[0]
+                     for fn in (parent.waterfall, parent.waterfall, T.waterfall)]
+            rates = [q.trials / q.elapsed_s for q in (pt, *again)]
+            print(f"  {impl} {name} {x} dB in turns, cw/s end to end: this kernel {rates[0]:.1f}, "
+                  f"parent's {rates[1]:.1f} and {rates[2]:.1f}, this kernel {rates[3]:.1f}; frame "
+                  f"errors {[q.frame_errors for q in again]}")
+            if any(q.frame_errors != pt.frame_errors for q in again):
+                fail(f"{impl}: the parent's kernel and this one differ on the same draws")
     stage_times("sp_layered ebn0 0.9 dB", make_trial_step(code, 8192, 100, impl="sp_layered"),
                 T.noise_sigma(0.9, code, "ebn0"))
 

@@ -105,12 +105,14 @@
 #include <type_traits>
 
 #include "minsum_arith.cuh"
+#include "qc_addend.cuh"
 
 namespace {
 
+using qc::kMaxAddends;
+using qc::kMaxCols;
+
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxAddends = 64;           // two per lane of the register-held table
-constexpr int kMaxCols = 16;              // block columns: four bits of a descriptor
 constexpr int kMaxAddendsPerRow = 32;     // one bit each in the u_old masks
 constexpr size_t kMaxSharedBytes = 232448;  // what one block can address
 
@@ -129,38 +131,6 @@ struct Post<__nv_bfloat16> {
   using S = __nv_bfloat16;
   __device__ static __forceinline__ float ld(S x) { return __bfloat162float(x); }
   __device__ static __forceinline__ S st(float x) { return __float2bfloat16_rn(x); }
-};
-
-// One addend, unpacked from its descriptor (ops/cuda_layered.py
-// addend_descriptors): lo = col | kind << 4 | theta << 5 | s0 << 7 | run_end
-// << 19, with s0 the rotation's shift or a pi permutation's phi0, and
-// run_end the end of the run of addends this one belongs to (pass 2 needs no
-// barrier inside a run); hi = phi1 | phi2 << 10 | phi3 << 20.
-struct Addend {
-  int lo, hi;
-  __device__ __forceinline__ int col() const { return lo & 15; }
-  __device__ __forceinline__ int run_end() const { return (lo >> 19) & 63; }
-  // variable offset (within block column col()) of check offset i
-  __device__ __forceinline__ int perm(int i, int M, int qsh) const {
-    const int s0 = (lo >> 7) & 4095;
-    if (!(lo & 16)) return (i + s0) & (M - 1);
-    const int j = i >> qsh;
-    const int phi = j == 0 ? s0 : (hi >> (10 * (j - 1))) & 1023;
-    return ((((lo >> 5) + j) & 3) << qsh) | ((phi + i) & ((1 << qsh) - 1));
-  }
-};
-
-// The addend table in registers: lane l holds the descriptors of addends l
-// and l + 32; every lane of the warp must call fetch with the same e.
-struct Table {
-  int lo[2], hi[2];
-  __device__ __forceinline__ Addend fetch(int e) const {
-    const bool upper = e >= 32;
-    const int l = __shfl_sync(0xffffffffu, upper ? lo[1] : lo[0], e & 31);
-    // hi holds phi1..phi3, which only a pi permutation reads (a uniform branch)
-    const int h = (l & 16) ? __shfl_sync(0xffffffffu, upper ? hi[1] : hi[0], e & 31) : 0;
-    return Addend{l, h};
-  }
 };
 
 // The two u_old magnitudes of a check, as stored (scaled, rounded to T):
@@ -217,13 +187,8 @@ __global__ void __launch_bounds__(kMaxThreads) layered_minsum_kernel(
   const int qsh = __ffs(M) - 3;  // log2(M / 4)
   const T* llr = llrs + static_cast<size_t>(b) * n;
 
-  Table tab;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int e = (tid & 31) + 32 * h;
-    tab.lo[h] = e < sumA ? desc[2 * e] : 0;
-    tab.hi[h] = e < sumA ? desc[2 * e + 1] : 0;
-  }
+  qc::Table tab;
+  tab.load(desc, sumA);
   // this thread's checks: i0 + 32*k (k < K), so that a warp's lanes take 32
   // consecutive checks at a time and every per-check address is one base plus
   // a constant; with M < 32 (one warp, K = 1) the lanes past M shadow check
@@ -266,7 +231,7 @@ __global__ void __launch_bounds__(kMaxThreads) layered_minsum_kernel(
         unsigned wh = 0, ng = 0;
 #pragma unroll 1
         for (int e = e0; e < e1; ++e) {
-          const Addend a = tab.fetch(e);
+          const qc::Addend a = tab.fetch(e);
           const A g = P::ld(va[a.col() * M + a.perm(i, M, qsh)]);
           A u_old = A(0), tp = A(0);
           if (!first) {
@@ -312,7 +277,7 @@ __global__ void __launch_bounds__(kMaxThreads) layered_minsum_kernel(
           const bool sg = sgs[c] != 0;
 #pragma unroll 1
           for (int e = s0; e < s1; ++e) {
-            const Addend a = tab.fetch(e);
+            const qc::Addend a = tab.fetch(e);
             const A t = Ar::ld(tps[e * M + i]);
             A mag = Ar::sat_abs(t) == m1 ? m2 : m1;  // equality tie rule
             if (use_alpha) mag = Ar::scale(alpha, mag);
@@ -337,7 +302,7 @@ __global__ void __launch_bounds__(kMaxThreads) layered_minsum_kernel(
         unsigned par = 0;
 #pragma unroll 1
         for (int e = row_off[r]; e < row_off[r + 1]; ++e) {
-          const Addend a = tab.fetch(e);
+          const qc::Addend a = tab.fetch(e);
           par ^= P::ld(va[a.col() * M + a.perm(i, M, qsh)]) < A(0) ? 1u : 0u;
         }
         bad |= own ? par : 0u;

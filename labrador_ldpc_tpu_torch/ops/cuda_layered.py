@@ -81,17 +81,6 @@ def column_order(table: np.ndarray, n_block_cols: int) -> tuple[np.ndarray, np.n
     return col_edges, col_off.astype(np.int32)
 
 
-@lru_cache(maxsize=None)
-def _device_tables(code: LDPCCode, device: torch.device):
-    """`addend_table` on the device, for the kernels that read it there."""
-    s = qc_structure(code)
-    # perm_index reduces mod M and mod M/4 with masks
-    if s.m & (s.m - 1) or s.m % 4:
-        raise ValueError(f"the CUDA kernels need a power-of-two M, {code} has {s.m}")
-    table, off = addend_table(s)
-    return torch.as_tensor(table, device=device), torch.as_tensor(off, device=device)
-
-
 def addend_descriptors(s: QCStructure) -> np.ndarray:
     """The layered kernel's view of `qc_structure`: (sumA, 2) int32 words per
     addend, which its threads keep in registers.
