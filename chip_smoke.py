@@ -8,19 +8,22 @@ JAX package, and reads the CCSDS golden parity from tests/golden_vectors.py
 (plain data). Every phase is fatal on failure; nothing is caught. With
 --parent DIR (a checkout of another commit, e.g. `git archive` of the parent
 unpacked into a gitignored directory), phase 7 also times that checkout's
-sum-product kernel, in turns with this one's, on the same inputs, and phase
-13 drives its `sp_layered` point on the same draws, which must give the
-same frame errors.
+sum-product and flooding min-sum kernels, in turns with this one's, on the
+same inputs, phases 9 and 13 drive its `cuda_qc` and `sp_layered` points on
+the same draws, which must give the same frame errors, and phase 14 times
+its flooding kernel on the same rescue batch.
 
   1. build every CUDA source of the port with nvcc, all at once (four);
      print ptxas's registers, stack frame and spills of every instance of the
-     layered min-sum kernel (four forms x 1, 2, 4 checks a thread) and of the
+     layered min-sum kernel (four forms x 1, 2, 4 checks a thread), of the
      sum-product kernel (checks a thread x widest row, ops/cuda_sp.py
-     INSTANCES), and fail on any spill, or on a stack frame of the
-     sum-product kernel, whose phi values must stay in registers; count the
-     SASS (cuobjdump -sass) of the TM8192 sum-product instance per edge
-     visit in pass 1, pass 2 and the syndrome, and its MUFU instructions per
-     phi;
+     INSTANCES) and of the flooding min-sum kernel (four forms x the
+     instances of ops/cuda_qc.py INSTANCES), and fail on any spill, or on a
+     stack frame of the sum-product or flooding kernel, whose per-check
+     state must stay in registers; count the SASS (cuobjdump -sass) of the
+     TM8192 sum-product instance per edge visit in pass 1, pass 2 and the
+     syndrome, and its MUFU instructions per phi, and of the TM8192 float32
+     flooding instance per edge visit in sweep 1 and sweep 2;
   2. print the card's name and power limit (nvidia-smi), its SMs and its
      largest SM clock;
   3. encoder on the card against the golden CCSDS parity of all nine codes;
@@ -47,7 +50,10 @@ same frame errors.
      int8, int16, bf16) and the flooding kernel (float32, bf16, int8, int16)
      at TM8192,
      B=16384, maxiters=50 on the 3-flip batch of phase 5, the flooding
-     float32 form also at Eb/N0 1.1 dB, every form at TM1536, the
+     float32 form also at Eb/N0 1.1 dB, every form at TM1536 (each flooding
+     time with its launch shape, barriers per iteration and, with --parent,
+     the parent's kernel in turns; at TM8192 the issue floor of the SASS
+     count), the
      bit-flip kernel at TM8192, B=16384, maxiters=50 on the 3-flip batch
      (the decode_bf protocol, benches/decode.rs:22-37), on a BSC(p=0.006)
      batch where failing frames run deep, and at TM1536 on 3 flips; the
@@ -79,7 +85,9 @@ same frame errors.
      batches, maxiters 0 and 1, B=257 and B=1, and once against the plain
      version on the CPU; bf16 also with alpha=0.8;
  11. the same for the flooding kernel in float32 and bf16 (each also with
-     alpha=0.8), int8 and int16;
+     alpha=0.8), int8 and int16; and its launch shape for every code and
+     form, with the card's CTAs per SM held to launch_config's at ptxas's
+     registers;
  12. the layered sum-product kernel against its plain version on the card,
      all nine codes (B=256, maxiters 20, true LLRs where some frames fail and
      some converge), clean batches, maxiters 0 and 1, B=257 and B=1: identical
@@ -152,7 +160,9 @@ FLOOD_OPS_PER_EDGE_ITER_SAT = 39
 # bfloat16 and float32 as one: layered 6 loads/stores of u, t' and 6 in the
 # roundings of |t| and of the posterior update (bf16(va + bf16(d))); flooding
 # 5 loads/stores of v, m1, m2, g and 7 in the roundings of u, the posterior
-# and |nv|
+# and |nv|. The flooding counts are those of the kernel the redesign of
+# csrc/flooding_minsum.cu replaced, kept so that its bound stays comparable;
+# phase 1 counts the SASS of the redesign itself
 OPS_PER_EDGE_ITER_BF16 = 32
 FLOOD_OPS_PER_EDGE_ITER_BF16 = 46
 BF_OPS_PER_EDGE_ITER = 10
@@ -238,6 +248,26 @@ def ptxas_functions(log: str, kernel: str) -> dict[str, tuple[str, str]]:
     return out
 
 
+def sass_ops(so: Path, function: str) -> list[str]:
+    """The opcodes, in order, of the function of a built library whose
+    mangled name contains `function`, from `cuobjdump -sass`."""
+    from labrador_ldpc_tpu_torch.ops import _nvcc
+
+    tool = Path(_nvcc._nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    ops, inside = [], False
+    for line in dump.splitlines():
+        if "Function :" in line:
+            inside = function in line
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line) if inside else None
+        if m:
+            toks = [t for t in m.group(1).split() if not t.startswith("@")]
+            ops.append(toks[0] if toks else "")
+    return ops
+
+
 def sass_counts(so: Path, kernel: str, K: int, width: int) -> dict | None:
     """Static SASS instruction counts of one instance of the sum-product
     kernel (K checks a thread, rows of `width` addends), from `cuobjdump
@@ -251,21 +281,7 @@ def sass_counts(so: Path, kernel: str, K: int, width: int) -> dict | None:
     taken slow-path call), so an upper estimate of what a visit issues; pass
     1's MUFU instructions over K*width are those of one phi. None (with the
     reason printed) if the SASS is not cut so."""
-    from labrador_ldpc_tpu_torch.ops import _nvcc
-
-    tool = Path(_nvcc._nvcc()).with_name("cuobjdump")
-    dump = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
-    want = f"{kernel}ILi{K}ELi{width}EEEv"
-    ops, inside = [], False
-    for line in dump.splitlines():
-        if "Function :" in line:
-            inside = want in line
-            continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line) if inside else None
-        if m:
-            toks = [t for t in m.group(1).split() if not t.startswith("@")]
-            ops.append(toks[0] if toks else "")
+    ops = sass_ops(so, f"{kernel}ILi{K}ELi{width}EEEv")
     label = f"{kernel}<{K}, {width}>"
     syncs = [i for i, op in enumerate(ops) if op.startswith("BAR") and ".RED" not in op]
     reds = [i for i, op in enumerate(ops) if op.startswith("BAR.RED")]
@@ -289,6 +305,41 @@ def sass_counts(so: Path, kernel: str, K: int, width: int) -> dict | None:
     return out
 
 
+def flood_sass_counts(so: Path, K: int, R: int, width: int) -> dict | None:
+    """Static SASS instruction counts of the float32 instance of the flooding
+    kernel with K checks a thread, R block rows and rows of `width` addends,
+    from `cuobjdump -sass` of the built library, cut at its barriers: sweep
+    1 runs from the staging's BAR.SYNC to the run loop's BAR.SYNC, sweep 2
+    from there to the BAR.RED of __syncthreads_or. Each region's count over
+    its edge-visit copies (sweep 1: its stores to va, one a visit, every
+    row's and the alpha arm's copy counted; sweep 2: its 16-bit loads of an
+    edge's variable index, one a visit of one row's unrolled body) is its
+    instructions per edge visit, the run-word shuffle and loop overhead
+    spread over the copies and both arms of every branch counted, so an
+    estimate of what a visit issues.
+    None (with the reason printed) if the SASS is not cut so."""
+    ops = sass_ops(so, f"flooding_minsum_kernelIfLi{K}ELi{R}ELi{width}EEEv")
+    label = f"flooding_minsum_kernel<f32, {K}, {R}, {width}>"
+    syncs = [i for i, op in enumerate(ops) if op.startswith("BAR") and ".RED" not in op]
+    reds = [i for i, op in enumerate(ops) if op.startswith("BAR.RED")]
+    if len(syncs) != 2 or len(reds) != 1 or syncs[-1] > reds[0]:
+        print(f"  SASS of {label}: {len(ops)} instructions, BAR.SYNC at {syncs}, BAR.RED at "
+              f"{reds}: not the expected 2 BAR.SYNC before one BAR.RED; no count")
+        return None
+    s1, s2 = ops[syncs[0] + 1 : syncs[1]], ops[syncs[1] + 1 : reds[0]]
+    copies1 = sum(op.startswith("STS") for op in s1)
+    copies2 = sum(op.startswith("LDS.U16") for op in s2)
+    if copies1 == 0 or copies2 != K * width:
+        print(f"  SASS of {label}: {copies1} stores in sweep 1, {copies2} index loads in "
+              f"sweep 2 (want {K * width}); no count")
+        return None
+    out = {"sweep 1": len(s1) / copies1, "sweep 2": len(s2) / copies2}
+    print(f"  SASS of {label}: {len(ops)} instructions; sweep 1 {len(s1)} over {copies1} "
+          f"visit copies, {out['sweep 1']:.2f} an edge visit; sweep 2 {len(s2)} over {copies2}, "
+          f"{out['sweep 2']:.2f} an edge visit")
+    return out
+
+
 def phase(name: str):
     print(f"== {name}", flush=True)
 
@@ -304,14 +355,16 @@ def load_parent(root: Path):
     sys.modules["parent_port"] = mod
     spec.loader.exec_module(mod)
     importlib.import_module("parent_port.ops.cuda_sp")
+    importlib.import_module("parent_port.ops.cuda_qc")
     return mod
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of the parent commit: phases 7 and 13 time its sum-product "
-                         "kernel in turns with this one's, on the same inputs")
+                    help="a checkout of the parent commit: phases 7, 9, 13 and 14 time its "
+                         "sum-product and flooding kernels in turns with this one's, on the same "
+                         "inputs")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -337,7 +390,8 @@ def main() -> None:
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         builds = list(pool.map(_nvcc.build, sources))
     print(f"built in {time.perf_counter() - t0:.2f} s")
-    templated = {cuda_layered.SOURCE: "layered_minsum_kernel", cuda_sp.SOURCE: "sumproduct_kernel"}
+    templated = {cuda_layered.SOURCE: "layered_minsum_kernel", cuda_sp.SOURCE: "sumproduct_kernel",
+                 cuda_qc.SOURCE: "flooding_minsum_kernel"}
     for source, b in zip(sources, builds):
         print(f"  {source}: nvcc {b.seconds:.2f} s -> {b.path.name}")
         if source in templated:
@@ -346,38 +400,52 @@ def main() -> None:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"    {line.strip()}")
     # the templated kernels' instances must not spill: the layered min-sum
-    # kernel's (form x checks a thread) and the sum-product kernel's (checks a
-    # thread x widest row), whose phi values must stay in registers, so no
-    # stack frame either
+    # kernel's (form x checks a thread), the sum-product kernel's (checks a
+    # thread x widest row), whose phi values must stay in registers, and the
+    # flooding kernel's (form x checks a thread x rows x widest row), whose
+    # check statistics must, so no stack frame for either of those
     built = dict(zip(sources, builds))
     sp_regs = {}  # registers of each sum-product instance, by widest row
+    flood_regs = {}  # registers of each flooding instance, by (form, widest row)
     for source, kernel in templated.items():
         fns = ptxas_functions(built[source].log, kernel)
         for name, (regs, spill) in sorted(fns.items()):
             print(f"    {name}: {regs}; {spill}")
             if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", spill):
                 fail(f"{name} spills registers: {spill}")
+            if source == cuda_layered.SOURCE:
+                continue
+            if not spill.startswith("0 bytes stack frame"):
+                fail(f"{name} has a stack frame: {spill}")
+            n_regs = int(re.search(r"Used (\d+) registers", regs).group(1))
             if source == cuda_sp.SOURCE:
-                if not spill.startswith("0 bytes stack frame"):
-                    fail(f"{name} has a stack frame: {spill}")
                 k, w = map(int, re.findall(r"\d+", name))
                 if cuda_sp.INSTANCES.get(w) != k:
                     fail(f"{name} is not the instance of cuda_sp.INSTANCES for rows of {w}")
                 # the card's CTAs per SM follow from them (cuda_sp.launch_config)
-                sp_regs[w] = int(re.search(r"Used (\d+) registers", regs).group(1))
-        want = (len(cuda_layered.FORMS) * len(cuda_layered.CHECKS_PER_THREAD)
-                if source == cuda_layered.SOURCE else len(cuda_sp.INSTANCES))
+                sp_regs[w] = n_regs
+            else:
+                form = name.split("<")[1].split(",")[0]
+                k, _, w = map(int, re.findall(r"\d+", name.split(",", 1)[1]))
+                if cuda_qc.INSTANCES.get(w) != k:
+                    fail(f"{name} is not the instance of cuda_qc.INSTANCES for rows of {w}")
+                flood_regs[form, w] = n_regs
+        want = {cuda_layered.SOURCE: len(cuda_layered.FORMS) * len(cuda_layered.CHECKS_PER_THREAD),
+                cuda_sp.SOURCE: len(cuda_sp.INSTANCES),
+                cuda_qc.SOURCE: len(cuda_layered.FORMS) * len(cuda_qc.INSTANCES)}[source]
         if len(fns) != want:
             fail(f"ptxas reported {len(fns)} {kernel} instances, want {want}")
     sp_sass = sass_counts(built[cuda_sp.SOURCE].path, "sumproduct_kernel", cuda_sp.INSTANCES[6], 6)
-    parent = parent_sp = None
+    flood_sass = flood_sass_counts(built[cuda_qc.SOURCE].path, cuda_qc.INSTANCES[6], 3, 6)
+    parent = parent_sp = parent_qc = None
     if args.parent is not None:
         parent = load_parent(args.parent)
-        parent_sp = parent.ops.cuda_sp
+        parent_sp, parent_qc = parent.ops.cuda_sp, parent.ops.cuda_qc
         t0 = time.perf_counter()
-        parent_sp._lib()
-        print(f"  the parent's {cuda_sp.SOURCE} ({args.parent}) built and loaded in "
-              f"{time.perf_counter() - t0:.2f} s")
+        with ThreadPoolExecutor(2) as pool:  # one nvcc per source, both at once
+            list(pool.map(lambda mod: mod._lib(), (parent_sp, parent_qc)))
+        print(f"  the parent's {cuda_sp.SOURCE} and {cuda_qc.SOURCE} ({args.parent}) built and "
+              f"loaded in {time.perf_counter() - t0:.2f} s")
     cuda_layered._lib()  # load the libraries and declare the C signatures
     cuda_qc._lib()
     cuda_bf._lib()
@@ -637,14 +705,22 @@ def main() -> None:
 
     def measure(kind, c, llrs, label, kern_reps=10, plain_reps=2, all_converge=True):
         """Kernel and plain version in turns (plain, kernel, kernel, plain)
-        on (B, n) LLRs of code c; returns the numbers of one row."""
+        on (B, n) LLRs of code c (with --parent, the parent's flooding kernel
+        too: plain, parent, kernel, kernel, parent, plain); returns the
+        numbers of one row."""
         kernel, plain_fn = kernels[kind]
         s = qc_structure(c)
         plain = lambda: plain_fn(s, llrs, maxiters)  # noqa: E731
         kern = lambda: kernel(c, llrs, maxiters)  # noqa: E731
+        old = parent_qc and kind == "flooding" and (
+            lambda: parent_qc.flooding_minsum(c.value, llrs, maxiters))  # its own codes
         plain_a, want = time_ms(plain, plain_reps)
+        if old:
+            parent_a, prev = time_ms(old, kern_reps)
         kern_a, got = time_ms(kern, kern_reps)
         kern_b, _ = time_ms(kern, kern_reps)
+        if old:
+            parent_b, _ = time_ms(old, kern_reps)
         plain_b, _ = time_ms(plain, plain_reps)
         err = max_diff(got, want)
         note_err(kind, llrs.dtype, err)
@@ -665,12 +741,43 @@ def main() -> None:
         )
         print(f"  {label}: kernel {kern_a:.4f} / {kern_b:.4f} ms per decode -> "
               f"{nb / row['ms'] * 1e3:.1f} cw/s; plain {plain_a:.4f} / {plain_b:.4f} ms")
+        if old:
+            row["parent_ms"] = min(parent_a, parent_b)
+            print(f"  {label}: parent's kernel {parent_a:.4f} / {parent_b:.4f} ms per decode "
+                  f"(max|diff| against the plain version {max_diff(prev, want)}); kernel/parent "
+                  f"{row['ms'] / row['parent_ms']:.4f}")
         print(f"  {label}: converged {int(got.success.sum())}/{nb}; sweeps {sweeps} (mean "
               f"{sweeps / nb:.3f} per codeword); in/out bytes {io_bytes}; ops {ops}; bound "
               f"{row['bound_ms']:.4f} ms (bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms)")
         if kind == "layered":
             print(f"  {label}: launch shape {layered_shape(c, llrs.dtype)}")
+            return row
+        print(f"  {label}: launch shape {flood_shape(c, llrs.dtype)}")
+        if c.value == "TM8192" and llrs.dtype == torch.float32 and flood_sass:
+            # its SASS per edge visit at one warp instruction a clock on each
+            # of an SM's four schedulers
+            instr = flood_sass["sweep 1"] + flood_sass["sweep 2"]
+            edge_iters = p.paritycheck_sum * sweeps
+            issue_ms = instr * edge_iters / 32 / (4 * n_sms * sm_clock_mhz * 1e6) * 1e3
+            row["issue_ms"] = issue_ms
+            print(f"  {label}: SASS issue floor {issue_ms:.4f} ms ({instr:.2f} instructions an "
+                  f"edge visit, {edge_iters} edge visits, {n_sms} SMs at {sm_clock_mhz} MHz, 4 "
+                  f"warp instructions an SM a clock); kernel/issue floor "
+                  f"{row['ms'] / issue_ms:.3f}")
         return row
+
+    def flood_shape(c, dtype) -> dict:
+        """The flooding kernel's launch shape for code c and a dtype form at
+        ptxas's registers of its instance, with sweep 1's runs and the
+        barriers per iteration; fails unless the card's occupancy calculator
+        gives launch_config's CTAs per SM."""
+        regs = flood_regs[forms[dtype], max(len(row) for row in qc_structure(c).rows)]
+        cfg = cuda_qc.launch_config(c, dtype, registers=regs)
+        card = cuda_qc.card_ctas_per_sm(c, dtype)
+        if card != cfg["ctas_per_sm"]:
+            fail(f"{c} flooding {forms[dtype]}: {card} CTAs per SM on the card, launch_config at "
+                 f"{regs} registers says {cfg['ctas_per_sm']}")
+        return dict(cfg, registers=regs)
 
     def layered_shape(c, dtype) -> dict:
         """The layered kernel's launch shape for code c and a dtype form, its
@@ -976,6 +1083,16 @@ def main() -> None:
         if point_launches[want_kernel] < 1 or sum(point_launches.values()) != \
                 point_launches[want_kernel]:
             fail(f"{impl} {dtype_name}: the waterfall did not run on {want_kernel} alone")
+        if impl == "cuda_qc" and parent is not None:
+            # the parent's flooding kernel on the same draws
+            (old,) = parent.waterfall(code.value, [1.1], batch=8192, maxiters=100, max_bits=1,
+                                      max_bit_errors=10**9, noise_model="ebn0",
+                                      dtype_name=dtype_name, impl=impl, seed=0)
+            print(f"  {impl:7s} {dtype_name:7s} the parent's kernel on the same draws: frame "
+                  f"errors {old.frame_errors}, {old.trials / old.elapsed_s:.1f} cw/s end to end")
+            if old.frame_errors != pt.frame_errors or old.bit_errors != pt.bit_errors:
+                fail(f"{impl} {dtype_name}: the parent's kernel and this one differ on the same "
+                     "draws")
         for name, n in point_launches.items():
             int_launches[name] += n
 
@@ -1115,6 +1232,16 @@ def main() -> None:
         c = T.get_code(name)
         hold(f"{name} flooding f32 alpha=0.8", c, mixed(c, 256, 7), 20, 0.8, kind="flooding")
     bf16_alpha("flooding")
+    print("  flooding kernel launch shapes (threads x checks a thread, shared bytes, CTAs per SM "
+          "from cudaOccupancyMaxActiveBlocksPerMultiprocessor == launch_config at ptxas's "
+          "registers; sweep-1 runs and barriers an iteration):")
+    for c in T.ALL_CODES:
+        cfgs = {dt: flood_shape(c, dt) for dt in forms}
+        print(f"    {c.value:6s} " + "; ".join(
+            f"{forms[dt]} {cfg['threads']}x{cfg['checks_per_thread']} {cfg['smem_bytes']} B "
+            f"{cfg['ctas_per_sm']}/SM at {cfg['registers']} registers" for dt, cfg in cfgs.items())
+            + f"; {cfgs[torch.float32]['runs']} runs, "
+              f"{cfgs[torch.float32]['barriers_per_iteration']} barriers an iteration")
 
     # ---- 12. the sum-product kernel ------------------------------------------------
     phase("12 layered sum-product kernel vs plain version on the card")
@@ -1269,6 +1396,19 @@ def main() -> None:
     )
     err = max_diff(res, want)
     n_bad, n_rescued = int(bad.numel()), int(resc.success.sum())
+    if parent_qc is not None and n_bad:
+        # the parent's flooding kernel on the same rescue batch, in turns
+        rescue_x = x.index_select(0, bad)
+        times = {}
+        for who, fn in (("parent", parent_qc.flooding_minsum), ("this", cuda_qc.flooding_minsum),
+                        ("this", cuda_qc.flooding_minsum), ("parent", parent_qc.flooding_minsum)):
+            ms, out = time_ms(lambda: fn(code.value, rescue_x, 100), 1)
+            times.setdefault(who, []).append(ms)
+            if max_diff(out, resc) != 0:
+                fail(f"the {who} flooding kernel's rescue differs from the one composed by hand")
+        print(f"  rescue batch of {n_bad} frames (flooding f32, 100 iterations), CUDA events, in "
+              f"turns: this kernel {times['this'][0]:.4f} / {times['this'][1]:.4f} ms, the "
+              f"parent's {times['parent'][0]:.4f} / {times['parent'][1]:.4f} ms")
     wrong = int((res.success & (res.bits[:, : code.k] != data).any(dim=1)).sum())
     print(f"  fast pass (layered bf16, 25 iterations): {8192 - n_bad} of 8192 converged "
           f"({ev[0].elapsed_time(ev[1]):.4f} ms, CUDA events); rescue batch {n_bad} frames "

@@ -3,14 +3,16 @@
 //
 // The table is `ops/cuda_layered.addend_table(qc_structure(code))`: one int32
 // row of kTableCols per addend, (row, col, kind, shift, theta, phi0..phi3),
-// read from device memory (the flooding and bit-flip kernels). Addend e links
+// read from device memory (the bit-flip kernel). Addend e links
 // check row*M + i to variable col*M + perm_index(a, i, M) (codes/expand.py
 // BlockPerm). M must be a power of two and a multiple of 4: every reduction
 // mod M or M/4 is a mask.
 //
 // The descriptors are `ops/cuda_layered.addend_descriptors`: two packed int32
 // words per addend, which the layered kernels (min-sum and sum-product) hold
-// in registers (Table) and unpack (Addend).
+// in registers (Table) and unpack (Addend); the flooding min-sum kernel
+// unpacks them once per codeword, from device memory, into its table of each
+// edge's variable.
 #pragma once
 
 namespace qc {

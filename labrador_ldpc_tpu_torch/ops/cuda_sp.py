@@ -33,7 +33,7 @@ from .minsum import MSResult
 from .sumproduct import check_sp_llrs, layered_sp_plain
 
 __all__ = ["make_sp_decoder_cuda", "layered_sp", "launch_config", "card_ctas_per_sm",
-           "INSTANCES", "SOURCE"]
+           "ctas_per_sm", "INSTANCES", "SOURCE"]
 
 SOURCE = "sumproduct.cu"
 
@@ -87,12 +87,19 @@ def launch_config(code: LDPCCode | str, registers: int = REGISTERS_PER_THREAD) -
     smem = (Cc + sumA) * M * 4
     if smem > CTA_SHARED_MAX:
         raise ValueError(f"{code} needs {smem} B of shared memory, over {CTA_SHARED_MAX}")
+    return dict(threads=threads, checks_per_thread=checks, smem_bytes=smem,
+                ctas_per_sm=ctas_per_sm(smem, threads, registers))
+
+
+def ctas_per_sm(smem: int, threads: int, registers: int) -> int:
+    """The CTAs of `threads` threads, `smem` dynamic shared bytes and
+    `registers` registers a thread that fit on one H100 SM: the fewest that
+    shared memory, the register file, 64 warps and 32 CTAs allow."""
     warps = threads // 32
     per_warp = -(-registers * 32 // REGISTER_UNIT) * REGISTER_UNIT
     reg_warps = SUB_PARTITION_REGISTERS // per_warp * SUB_PARTITIONS
-    ctas = min(MAX_CTAS_PER_SM, SM_SHARED_BYTES // (smem + CTA_RESERVED_BYTES),
+    return min(MAX_CTAS_PER_SM, SM_SHARED_BYTES // (smem + CTA_RESERVED_BYTES),
                MAX_WARPS_PER_SM // warps, reg_warps // warps)
-    return dict(threads=threads, checks_per_thread=checks, smem_bytes=smem, ctas_per_sm=ctas)
 
 
 def card_ctas_per_sm(code: LDPCCode | str) -> int:

@@ -115,15 +115,21 @@ def test_flooding_rejects_what_it_does_not_take():
 
 
 def test_kernel_shared_memory_fits_every_code():
-    """The kernel keeps a codeword's whole state in shared memory (the layout
-    of csrc/flooding_minsum.cu: va, m1, m2 and the per-addend messages in the
-    LLR type, the sign products as bytes): every code and dtype fits the
-    232,448 B a block can address on an H100 (TM8192 float32: 219,136 B)."""
-    def smem(code, size):
+    """The kernel keeps a codeword's posteriors, LLRs and each edge's
+    variable index in shared memory (the layout of csrc/flooding_minsum.cu,
+    `cuda_qc.launch_config`: two planes of Cc*M values of the LLR type and
+    sumA*M indices of 2 bytes; the check statistics live in registers): every
+    code and dtype fits the 232,448 B a block can address on an H100, with
+    room for 1,024 threads an SM (TM8192 float32: 143,360 B)."""
+    def smem(code, dtype):
         s = T.qc_structure(code)
-        rm, sum_a = s.n_block_rows * s.m, sum(len(row) for row in s.rows)
-        return (s.n_block_cols * s.m + 2 * rm + sum_a * s.m) * size + rm
+        size = torch.empty((), dtype=dtype).element_size()
+        return (2 * s.n_block_cols * size + 2 * sum(len(row) for row in s.rows)) * s.m
 
-    sizes = {(c.value, size): smem(c, size) for c in T.ALL_CODES for size in (4, 1, 2)}
-    assert max(sizes.values()) == sizes[("TM8192", 4)] == 219_136 <= 232_448
-    assert (sizes[("TM8192", 1)], sizes[("TM8192", 2)]) == (59_392, 112_640)
+    dtypes = (torch.float32, torch.int8, torch.int16, torch.bfloat16)
+    sizes = {(c.value, dt): smem(c, dt) for c in T.ALL_CODES for dt in dtypes}
+    for (name, dt), size in sizes.items():
+        cfg = cuda_qc.launch_config(name, dt)
+        assert cfg["smem_bytes"] == size and cfg["threads"] * cfg["ctas_per_sm"] == 1024
+    assert max(sizes.values()) == sizes[("TM8192", torch.float32)] == 143_360 <= 232_448
+    assert (sizes[("TM8192", torch.int8)], sizes[("TM8192", torch.int16)]) == (81_920, 102_400)
