@@ -8,10 +8,12 @@ JAX package, and reads the CCSDS golden parity from tests/golden_vectors.py
 (plain data). Every phase is fatal on failure; nothing is caught. With
 --parent DIR (a checkout of another commit, e.g. `git archive` of the parent
 unpacked into a gitignored directory), phase 7 also times that checkout's
-sum-product and flooding min-sum kernels, in turns with this one's, on the
-same inputs, phases 9 and 13 drive its `cuda_qc` and `sp_layered` points on
-the same draws, which must give the same frame errors, and phase 14 times
-its flooding kernel on the same rescue batch.
+sum-product, flooding min-sum and bit-flip kernels, in turns with this
+one's, on the same inputs (and counts the SASS of its bit-flip kernel an
+edge visit), phases 9 and 13 drive its `bf`, `cuda_qc` and `sp_layered`
+points on the same draws, which must give the same frame errors (and, for
+`bf`, bit errors), and phase 14 times its flooding kernel on the same rescue
+batch.
 
   1. build every CUDA source of the port with nvcc, all at once (four);
      print ptxas's registers, stack frame and spills of every instance of the
@@ -23,7 +25,10 @@ its flooding kernel on the same rescue batch.
      state must stay in registers; count the SASS (cuobjdump -sass) of the
      TM8192 sum-product instance per edge visit in pass 1, pass 2 and the
      syndrome, and its MUFU instructions per phi, and of the TM8192 float32
-     flooding instance per edge visit in sweep 1 and sweep 2;
+     flooding instance per edge visit in sweep 1 and sweep 2; print ptxas's
+     registers, stack frame and spills of the bit-flip kernel, fail on a
+     spill or a stack frame, and count its SASS a parity window and a count
+     window (its window loops, one funnel shift a window);
   2. print the card's name and power limit (nvidia-smi), its SMs and its
      largest SM clock;
   3. encoder on the card against the golden CCSDS parity of all nine codes;
@@ -56,7 +61,11 @@ its flooding kernel on the same rescue batch.
      count), the
      bit-flip kernel at TM8192, B=16384, maxiters=50 on the 3-flip batch
      (the decode_bf protocol, benches/decode.rs:22-37), on a BSC(p=0.006)
-     batch where failing frames run deep, and at TM1536 on 3 flips; the
+     batch where failing frames run deep, and at TM1536 on 3 flips, each
+     with its launch shape (the card's CTAs per SM must equal
+     launch_config's at ptxas's registers), its bound (bytes, or the
+     parent design's operations over 32 bits an operation) and its SASS
+     issue floor; the
      layered sum-product kernel at TM8192, Eb/N0 0.9 dB, B=8192, maxiters
      100 (true LLRs 2y/sigma^2), and at TM1536, Eb/N0 2.0 dB, each with its
      launch shape (the card's CTAs per SM must equal launch_config's) and
@@ -65,9 +74,11 @@ its flooding kernel on the same rescue batch.
      instructions an SM a clock) and its MUFU floor;
   8. the bit-flip kernel against its plain PyTorch version on the card, all
      nine codes (B=256, 1-6 flips plus heavy corruption on half the batch,
-     maxiters=20), clean codewords, maxiters 0 and 1, odd batch sizes, and
-     once against the plain version on the CPU: identical bits, success and
-     iterations;
+     maxiters=20), clean codewords, maxiters 0 and 1, odd batch sizes, a
+     batch whose hard bits start one byte into their buffer, and once
+     against the plain version on the CPU: identical bits, success and
+     iterations; and its launch shape for every code, the card's CTAs per SM
+     held to launch_config's;
   9. the slices' waterfall paths: `waterfall(..., device="cuda")` at
      TM8192, batch 8192, one batch per point: bit-flip over Eb/N0 6.5 dB,
      BSC 0.006 and BEC 0.012, soft min-sum at 1.0 dB, and the quantized-LLR
@@ -137,15 +148,18 @@ F32_OPS_PER_S = 67e12
 # sign compare and xor counted as one), 7 in pass 2 (abs, compare, select,
 # sign compare, negate-select, sub, add), 1 in the syndrome; alpha adds 1
 OPS_PER_EDGE_ITER = 20
-# integer operations in csrc/bitflip.cu, counted from the source: per edge
-# and iteration 5 in the parity sweep (kind test, add, mask of a rotation's
-# perm_index; address; xor) and 5 in the count sweep (the same for
-# perm_inverse; add); per variable and iteration 3 (max, compare, xor); the
-# erasure pass costs one parity sweep. A pi permutation's index costs more
-# and loop counters are not counted, so this undercounts. The data-sheet
-# peaks above give no integer rate: they are divided by the float32 rate
-# outside the tensor cores (F32_OPS_PER_S), the SM's widest non-tensor pipe,
-# so the bound is a lower bound.
+# integer operations of the parent design of csrc/bitflip.cu (one byte a
+# bit), counted from its source: per edge and iteration 5 in the parity sweep
+# (kind test, add, mask of a rotation's perm_index; address; xor) and 5 in
+# the count sweep (the same for perm_inverse; add); per variable and
+# iteration 3 (max, compare, xor); the erasure pass costs one parity sweep.
+# The bit-packed kernel does this work 32 edges or variables a 32-bit
+# operation, so its operations are these counts over BF_BITS_PER_OP (the
+# bound counts that); the counts themselves are printed as the parent
+# design's operations. The data-sheet peaks above give no integer rate: the
+# operations are divided by the float32 rate outside the tensor cores
+# (F32_OPS_PER_S), the SM's widest non-tensor pipe, so the bound is a lower
+# bound.
 # integer operations per edge and iteration of the int8/int16 forms of
 # csrc/layered_minsum.cu: the float32 count plus the clamp of t (2) and the
 # saturating abs (1)
@@ -168,6 +182,7 @@ FLOOD_OPS_PER_EDGE_ITER_BF16 = 46
 BF_OPS_PER_EDGE_ITER = 10
 BF_OPS_PER_VAR_ITER = 3
 BF_OPS_ERASURE_PER_EDGE = 5
+BF_BITS_PER_OP = 32
 
 # Eb/N0 (dB) at which a batch partly converges at maxiters=20, per code
 PARTIAL_EBN0 = {
@@ -248,24 +263,94 @@ def ptxas_functions(log: str, kernel: str) -> dict[str, tuple[str, str]]:
     return out
 
 
-def sass_ops(so: Path, function: str) -> list[str]:
-    """The opcodes, in order, of the function of a built library whose
-    mangled name contains `function`, from `cuobjdump -sass`."""
+def sass_lines(so: Path, function: str) -> list[tuple[int, str, str]]:
+    """(address, opcode, instruction text), in order, of the function of a
+    built library whose mangled name contains `function`, from `cuobjdump
+    -sass`."""
     from labrador_ldpc_tpu_torch.ops import _nvcc
 
     tool = Path(_nvcc._nvcc()).with_name("cuobjdump")
     dump = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    ops, inside = [], False
+    out, inside = [], False
     for line in dump.splitlines():
         if "Function :" in line:
             inside = function in line
             continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line) if inside else None
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line) if inside else None
         if m:
-            toks = [t for t in m.group(1).split() if not t.startswith("@")]
-            ops.append(toks[0] if toks else "")
-    return ops
+            toks = [t for t in m.group(2).split() if not t.startswith("@")]
+            out.append((int(m.group(1), 16), toks[0] if toks else "", m.group(2)))
+    return out
+
+
+def sass_ops(so: Path, function: str) -> list[str]:
+    """The opcodes, in order, of the function of a built library whose
+    mangled name contains `function`, from `cuobjdump -sass`."""
+    return [op for _, op, _ in sass_lines(so, function)]
+
+
+def sass_loops(lines: list[tuple[int, str, str]], marker: str) -> list[tuple[int, list[str]]]:
+    """The innermost loops of a function's SASS (`sass_lines`) whose body
+    holds an instruction whose opcode starts with `marker`: (first address,
+    the body's opcodes from the branch target to the backward branch), in
+    address order. A loop is a BRA to a lower address; innermost means no
+    other such loop lies inside it."""
+    spans = []
+    for addr, op, text in lines:
+        m = re.search(r"0x([0-9a-f]+)", text) if op.startswith("BRA") else None
+        if m and int(m.group(1), 16) < addr:
+            spans.append((int(m.group(1), 16), addr))
+    spans = [s for s in spans if not any(o != s and s[0] <= o[0] and o[1] <= s[1] for o in spans)]
+    out = []
+    for lo, hi in sorted(set(spans)):
+        body = [op for addr, op, _ in lines if lo <= addr <= hi]
+        if any(op.startswith(marker) for op in body):
+            out.append((lo, body))
+    return out
+
+
+def bf_sass_counts(so: Path) -> dict | None:
+    """Static SASS instructions a window of csrc/bitflip.cu: its window loops
+    (one funnel shift, SHF.R.W, a window) are, in address order, the erasure
+    vote's parity loop and tail loop, the parity loop and the count loop
+    (`#pragma unroll 1`); a loop's body, its loop overhead and the
+    carry-save add included, is one window. None (with the reason printed)
+    if the SASS is not so."""
+    lines = sass_lines(so, "bitflip_kernel")
+    loops = [(lo, len(body), sum(op.startswith("SHF.R.W") for op in body))
+             for lo, body in sass_loops(lines, "SHF.R.W")]
+    if len(loops) != 4 or any(marks != 1 for _, _, marks in loops):
+        print(f"  SASS of bitflip_kernel: {len(lines)} instructions; funnel-shift loops (address, "
+              f"instructions, funnel shifts) {loops}: not the expected four of one; no count")
+        return None
+    out = {"parity": loops[2][1], "count": loops[3][1]}
+    print(f"  SASS of bitflip_kernel: {len(lines)} instructions; a parity window {out['parity']}, "
+          f"a count window {out['count']} instructions (loop bodies at {loops[2][0]:#x} and "
+          f"{loops[3][0]:#x}; the vote's parity and tail loops {loops[0][1]} and {loops[1][1]})")
+    return out
+
+
+def parent_bf_sass_counts(so: Path) -> float | None:
+    """Static SASS instructions an edge visit of the parent design of
+    csrc/bitflip.cu (one byte a bit): over the innermost loops whose body
+    reads both the addend table in device memory (LDG) and a byte of shared
+    memory (LDS.U8, one an edge visit), the body's instructions over its byte
+    loads, both arms of the rotation/pi branch counted; the mean over those
+    loops (the vote's, the parity sweep's and the count sweep's, unrolled or
+    not)."""
+    lines = sass_lines(so, "bitflip_kernel")
+    loops = [len(body) / sum(op.startswith("LDS.U8") for op in body)
+             for _, body in sass_loops(lines, "LDS.U8") if any(op.startswith("LDG") for op in body)]
+    if not loops:
+        print(f"  SASS of the parent's bitflip_kernel: {len(lines)} instructions; no loop reads "
+              f"the table and a shared byte; no count")
+        return None
+    mean = sum(loops) / len(loops)
+    print(f"  SASS of the parent's bitflip_kernel: {len(lines)} instructions; instructions an "
+          f"edge visit of its {len(loops)} table-reading loops {[round(x, 2) for x in loops]}, "
+          f"mean {mean:.2f}")
+    return mean
 
 
 def sass_counts(so: Path, kernel: str, K: int, width: int) -> dict | None:
@@ -354,8 +439,8 @@ def load_parent(root: Path):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["parent_port"] = mod
     spec.loader.exec_module(mod)
-    importlib.import_module("parent_port.ops.cuda_sp")
-    importlib.import_module("parent_port.ops.cuda_qc")
+    for name in ("cuda_sp", "cuda_qc", "cuda_bf", "_nvcc"):
+        importlib.import_module(f"parent_port.ops.{name}")
     return mod
 
 
@@ -363,8 +448,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of the parent commit: phases 7, 9, 13 and 14 time its "
-                         "sum-product and flooding kernels in turns with this one's, on the same "
-                         "inputs")
+                         "sum-product, flooding and bit-flip kernels in turns with this one's, on "
+                         "the same inputs")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -435,17 +520,27 @@ def main() -> None:
                 cuda_qc.SOURCE: len(cuda_layered.FORMS) * len(cuda_qc.INSTANCES)}[source]
         if len(fns) != want:
             fail(f"ptxas reported {len(fns)} {kernel} instances, want {want}")
+    # the bit-flip kernel keeps its state in shared memory and a few
+    # registers: no spill and no stack frame
+    bf_log = built[cuda_bf.SOURCE].log
+    bf_spills = [line.strip() for line in bf_log.splitlines() if "spill" in line]
+    if not bf_spills or any(not line.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                                "0 bytes spill loads") for line in bf_spills):
+        fail(f"bitflip_kernel spills registers or has a stack frame: {bf_spills}")
+    bf_regs = int(re.search(r"Used (\d+) registers", bf_log).group(1))
     sp_sass = sass_counts(built[cuda_sp.SOURCE].path, "sumproduct_kernel", cuda_sp.INSTANCES[6], 6)
     flood_sass = flood_sass_counts(built[cuda_qc.SOURCE].path, cuda_qc.INSTANCES[6], 3, 6)
-    parent = parent_sp = parent_qc = None
+    bf_sass = bf_sass_counts(built[cuda_bf.SOURCE].path)
+    parent = parent_sp = parent_qc = parent_bf = parent_bf_sass = None
     if args.parent is not None:
         parent = load_parent(args.parent)
-        parent_sp, parent_qc = parent.ops.cuda_sp, parent.ops.cuda_qc
+        parent_sp, parent_qc, parent_bf = parent.ops.cuda_sp, parent.ops.cuda_qc, parent.ops.cuda_bf
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(2) as pool:  # one nvcc per source, both at once
-            list(pool.map(lambda mod: mod._lib(), (parent_sp, parent_qc)))
-        print(f"  the parent's {cuda_sp.SOURCE} and {cuda_qc.SOURCE} ({args.parent}) built and "
-              f"loaded in {time.perf_counter() - t0:.2f} s")
+        with ThreadPoolExecutor(3) as pool:  # one nvcc per source, all at once
+            list(pool.map(lambda mod: mod._lib(), (parent_sp, parent_qc, parent_bf)))
+        print(f"  the parent's {cuda_sp.SOURCE}, {cuda_qc.SOURCE} and {cuda_bf.SOURCE} "
+              f"({args.parent}) built and loaded in {time.perf_counter() - t0:.2f} s")
+        parent_bf_sass = parent_bf_sass_counts(parent.ops._nvcc.build(cuda_bf.SOURCE).path)
     cuda_layered._lib()  # load the libraries and declare the C signatures
     cuda_qc._lib()
     cuda_bf._lib()
@@ -832,16 +927,33 @@ def main() -> None:
 
     bf_max_err = 0.0
 
+    def bf_shape(c) -> dict:
+        """The bit-flip kernel's launch shape for code c at ptxas's registers;
+        fails unless the card's occupancy calculator gives launch_config's
+        CTAs per SM."""
+        cfg = cuda_bf.launch_config(c, registers=bf_regs)
+        card = cuda_bf.card_ctas_per_sm(c)
+        if card != cfg["ctas_per_sm"]:
+            fail(f"{c} bit-flip: {card} CTAs per SM on the card, launch_config at {bf_regs} "
+                 f"registers says {cfg['ctas_per_sm']}")
+        return dict(cfg, registers=bf_regs)
+
     def measure_bf(label, c, hard, mi):
         """Bit-flip kernel and its plain version in turns on (B, n) hard bits
-        of code c; returns the numbers of one row."""
+        of code c (with --parent, the parent's kernel too: plain, parent,
+        kernel, kernel, parent, plain); returns the numbers of one row."""
         nonlocal bf_max_err
         s = qc_structure(c)
         plain = lambda: bitflip_plain(s, hard, mi)  # noqa: E731
         kern = lambda: cuda_bf.bitflip(c, hard, mi)  # noqa: E731
+        old = parent_bf and (lambda: parent_bf.bitflip(c.value, hard, mi))  # its own codes
         plain_a, want = time_ms(plain, 2)
+        if old:
+            parent_a, prev = time_ms(old, 10)
         kern_a, got = time_ms(kern, 10)
         kern_b, _ = time_ms(kern, 10)
+        if old:
+            parent_b, _ = time_ms(old, 10)
         plain_b, _ = time_ms(plain, 2)
         err = max_diff(got, want)
         bf_max_err = max(bf_max_err, err)
@@ -853,9 +965,10 @@ def main() -> None:
         nb = hard.shape[0]
         io_bytes = nb * p.n + nb * p.n_vars + 5 * nb
         E, V = p.paritycheck_sum, p.n_vars
-        ops = sweeps * (BF_OPS_PER_EDGE_ITER * E + BF_OPS_PER_VAR_ITER * V)
+        old_ops = sweeps * (BF_OPS_PER_EDGE_ITER * E + BF_OPS_PER_VAR_ITER * V)
         if p.punctured_bits and mi > 0:
-            ops += nb * BF_OPS_ERASURE_PER_EDGE * E
+            old_ops += nb * BF_OPS_ERASURE_PER_EDGE * E
+        ops = -(-old_ops // BF_BITS_PER_OP)
         bytes_ms, ops_ms = io_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
         row = dict(
             ms=min(kern_a, kern_b), plain_ms=min(plain_a, plain_b),
@@ -865,10 +978,38 @@ def main() -> None:
         n_ok = int(got.success.sum())
         print(f"  {label}: kernel {kern_a:.4f} / {kern_b:.4f} ms per decode -> "
               f"{nb / row['ms'] * 1e3:.1f} cw/s; plain {plain_a:.4f} / {plain_b:.4f} ms")
+        if old:
+            row["parent_ms"] = min(parent_a, parent_b)
+            print(f"  {label}: parent's kernel {parent_a:.4f} / {parent_b:.4f} ms per decode "
+                  f"(max|diff| against the plain version {max_diff(prev, want)}); kernel/parent "
+                  f"{row['ms'] / row['parent_ms']:.4f}")
         print(f"  {label}: converged {n_ok}/{nb}; sweeps {sweeps} (mean {sweeps / nb:.3f}, "
-              f"max {int(per_cw.max())} per codeword); "
-              f"in/out bytes {io_bytes}; int ops {ops}; bound {row['bound_ms']:.4f} ms "
-              f"(bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms at {F32_OPS_PER_S:.3g}/s)")
+              f"max {int(per_cw.max())} per codeword); in/out bytes {io_bytes}; int ops {ops} "
+              f"(32 bits an operation; the parent design's operations {old_ops}, "
+              f"{old_ops / F32_OPS_PER_S * 1e3:.4f} ms); bound {row['bound_ms']:.4f} ms (bytes "
+              f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms at {F32_OPS_PER_S:.3g}/s)")
+        print(f"  {label}: launch shape {bf_shape(c)}")
+        rate = 4 * n_sms * sm_clock_mhz * 1e6  # warp instructions an SM a clock, all SMs
+        windows = sweeps * sum(map(len, s.rows)) * max(1, s.m // 32)  # of each kind
+        if bf_sass:
+            # a warp instruction serves 32 windows (32 lanes); the erasure
+            # vote's windows, packing, the per-word work and the flip are not
+            # counted. Nearly all of a window's instructions are integer ones,
+            # which an SM runs on 64 lanes a clock: two warp instructions
+            issue_ms = windows * (bf_sass["parity"] + bf_sass["count"]) / 32 / rate * 1e3
+            row["issue_ms"] = issue_ms
+            print(f"  {label}: SASS issue floor {issue_ms:.4f} ms ({windows} parity and {windows} "
+                  f"count windows at {bf_sass['parity']} and {bf_sass['count']} instructions, "
+                  f"{n_sms} SMs at {sm_clock_mhz} MHz, 4 warp instructions an SM a clock), "
+                  f"{2 * issue_ms:.4f} ms at the integer pipe's 2; kernel/issue floor "
+                  f"{row['ms'] / issue_ms:.3f}")
+        if old and parent_bf_sass:
+            visits = 2 * sweeps * E  # an edge visit in the parity and in the count sweep
+            parent_issue = visits * parent_bf_sass / 32 / rate * 1e3
+            print(f"  {label}: the parent's SASS issue floor {parent_issue:.4f} ms ({visits} edge "
+                  f"visits at {parent_bf_sass:.2f} instructions); parent/its floor "
+                  f"{row['parent_ms'] / parent_issue:.3f}; SM clocks a codeword-sweep of the "
+                  f"parent {row['parent_ms'] * 1e-3 * n_sms * sm_clock_mhz * 1e6 / sweeps:.0f}")
         return row
 
     def flipped_bits(c, data_np):
@@ -1019,6 +1160,25 @@ def main() -> None:
     for name, nb in (("TM2048", 257), ("TC256", 257), ("TM6144", 1)):
         c = T.get_code(name)
         hold_bf(f"{name} B={nb}", c, hard_batch(c, nb, 13), 20)
+    # hard bits that start one byte into their buffer: the wrapper copies
+    # them to an aligned one for the kernel's 16-byte loads
+    for name in ("TM8192", "TC128"):
+        c = T.get_code(name)
+        sent = hard_batch(c, 65, 15)
+        buf = torch.empty(sent.numel() + 1, dtype=torch.uint8, device=dev)
+        hard = buf[1:].view(sent.shape)
+        hard.copy_(sent)
+        if hard.data_ptr() % cuda_bf.INPUT_ALIGN == 0:
+            fail("the misaligned batch is aligned")
+        hold_bf(f"{name} misaligned by 1 B", c, hard, 20)
+    print("  bit-flip launch shapes (lanes a codeword, codewords a CTA, shared bytes, CTAs per SM "
+          "from cudaOccupancyMaxActiveBlocksPerMultiprocessor == launch_config at ptxas's "
+          "registers):")
+    for c in T.ALL_CODES:
+        cfg = bf_shape(c)
+        print(f"    {c.value:6s} {cfg['threads']} threads: {cfg['lanes']} lanes x "
+              f"{cfg['codewords_per_cta']} codewords, {cfg['smem_bytes']} B, "
+              f"{cfg['ctas_per_sm']}/SM at {cfg['registers']} registers")
     c = T.get_code("TM1536")
     hard = hard_batch(c, 64, 11)
     on_card = cuda_bf.bitflip(c, hard, 20)
@@ -1055,6 +1215,17 @@ def main() -> None:
         if pt.trials != 8192 or not want / BAND <= pt.frame_errors <= want * BAND:
             fail(f"{decoder} {model} {pt.snr_db}: {pt.frame_errors} frame errors, outside a "
                  f"factor {BAND} of the stored {want:.0f}")
+        if decoder == "bf" and parent is not None:
+            # the parent's bit-flip kernel on the same draws
+            (old,) = parent.waterfall(code.value, [pt.snr_db], batch=8192, maxiters=mi,
+                                      max_bits=1, max_bit_errors=10**9, noise_model=model,
+                                      decoder=decoder, seed=0)
+            print(f"  {decoder:2s} {model:5s} the parent's kernel on the same draws: frame errors "
+                  f"{old.frame_errors}, bit errors {old.bit_errors} (this kernel "
+                  f"{pt.bit_errors}), {old.trials / old.elapsed_s:.1f} cw/s end to end")
+            if old.frame_errors != pt.frame_errors or old.bit_errors != pt.bit_errors:
+                fail(f"{decoder} {model}: the parent's kernel and this one differ on the same "
+                     "draws")
     print(f"  launches on the slice's path: {slice_launches}")
     if min(slice_launches.values()) < 1:
         fail("the waterfall did not launch both CUDA kernels")

@@ -34,7 +34,7 @@ from ._nvcc import load_library
 from .minsum import MSResult
 from .qc_minsum import KERNEL_DTYPES, check_llrs, layered_minsum_plain
 
-__all__ = ["make_ms_decoder_cuda_layered", "layered_minsum", "addend_table", "column_order",
+__all__ = ["make_ms_decoder_cuda_layered", "layered_minsum", "addend_table",
            "addend_descriptors", "launch_config", "card_ctas_per_sm", "FORMS", "SOURCE"]
 
 SOURCE = "layered_minsum.cu"
@@ -71,14 +71,6 @@ def addend_table(s: QCStructure) -> tuple[np.ndarray, np.ndarray]:
             rows.append((p.row, p.col, 0 if p.kind == "rot" else 1, p.shift, p.theta, *phis))
         off.append(off[-1] + len(row))
     return np.asarray(rows, dtype=np.int32), np.asarray(off, dtype=np.int32)
-
-
-def column_order(table: np.ndarray, n_block_cols: int) -> tuple[np.ndarray, np.ndarray]:
-    """The addends grouped by block column, in addend order within a column
-    ((sumA,) int32), and the (Cc+1,) int32 offsets of each column's first."""
-    col_edges = np.argsort(table[:, 1], kind="stable").astype(np.int32)
-    col_off = np.concatenate([[0], np.cumsum(np.bincount(table[:, 1], minlength=n_block_cols))])
-    return col_edges, col_off.astype(np.int32)
 
 
 def addend_descriptors(s: QCStructure) -> np.ndarray:

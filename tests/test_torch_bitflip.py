@@ -5,7 +5,7 @@ CUDA kernel csrc/bitflip.cu; both TPU bit-flip kernels (pallas_bf B5 and
 pallas_tc B6) are pinned bit-exact to labrador_ldpc_tpu.ops.bitflip's twins.
 Here the port's decoders are held to those twins and to the interpreted
 kernels on the same numpy-made hard bits, and a numpy replay of the CUDA
-kernel's index arithmetic is held to the plain version.
+kernel's packed algorithm (`kernel_replay`) is held to the plain version.
 Tolerance: exact (bits, success and iterations are integer state).
 """
 
@@ -171,80 +171,112 @@ def test_kernel_vote_rows_from_addend_table(name):
         assert got == want
 
 
-def _perm_index(a, i, M):
-    """csrc/qc_addend.cuh perm_index over a numpy index vector."""
-    if a[2] == 0:
-        return (i + a[3]) & (M - 1)
-    q = M >> 2
-    j = i // q
-    return ((a[4] + j) & 3) * q + ((np.asarray(a[5:9])[j] + i) & (q - 1))
+def pack_replay(hard, M, CW):
+    """csrc/bitflip.cu's packing in numpy: bit 0 of each byte, 4 bytes a
+    multiply, 16 bits a 16-byte load; TC128 (M = 16) keeps a block column's
+    16 bits twice in one word. (B, n) uint8 -> (B, CW) uint32 words, the
+    punctured tail 0."""
+    B, n = hard.shape
+    x = np.ascontiguousarray(hard, dtype=np.uint8).view("<u4").astype(np.uint64)
+    nib = (((x & 0x01010101) * 0x10204080) & 0xFFFFFFFF) >> 28  # pack4
+    nib = nib.reshape(B, -1, 4)
+    h = nib[..., 0] | nib[..., 1] << 4 | nib[..., 2] << 8 | nib[..., 3] << 12  # (B, n/16)
+    words = np.zeros((B, CW), np.uint64)
+    if M == 16:
+        words[:, : n // 16] = h | h << 16
+    else:
+        words[:, : n // 32] = h[:, 0::2] | h[:, 1::2] << 16
+    return words.astype(np.uint32)
 
 
-def _perm_inverse(a, v, M):
-    """csrc/qc_addend.cuh perm_inverse over a numpy index vector."""
-    if a[2] == 0:
-        return (v - a[3]) & (M - 1)
-    q = M >> 2
-    j = ((v // q) - a[4]) & 3
-    return j * q + ((v - np.asarray(a[5:9])[j]) & (q - 1))
+def unpack_replay(words, M, V):
+    """csrc/bitflip.cu's unpacking in numpy: (B, words) -> (B, V) uint8."""
+    w = words.astype(np.uint64)
+    h = w & 0xFFFF if M == 16 else np.stack([w & 0xFFFF, w >> 16], axis=-1).reshape(len(w), -1)
+    nibs = (h[..., None] >> np.arange(0, 16, 4, dtype=np.uint64)) & 15
+    spread = ((nibs * 0x00204081) & 0x01010101).astype("<u4")  # unpack4
+    return np.ascontiguousarray(spread).view(np.uint8).reshape(len(w), V)
+
+
+def window_replay(src, ent):
+    """csrc/bitflip.cu `window` in numpy: the 32-bit windows of the entries
+    `ent` (b | w0 << 5 | w1 << 18) of (B, words) uint32 src -> (B, len(ent))."""
+    ent = np.asarray(ent, np.int64)
+    lo = src[:, (ent >> 5) & 0x1FFF].astype(np.uint64)
+    hi = src[:, ent >> 18].astype(np.uint64)
+    return (((hi << 32 | lo) >> (ent & 31).astype(np.uint64)) & 0xFFFFFFFF).astype(np.uint32)
 
 
 def kernel_replay(name, hard, maxiters):
-    """csrc/bitflip.cu step for step in numpy, one codeword at a time, over
-    the tables the wrapper passes (ops/cuda_bf._device_tables)."""
+    """csrc/bitflip.cu step for step in numpy, all codewords at once, over
+    the table the wrapper passes (ops/cuda_bf.kernel_table): packed words,
+    XORs of windows for the parities, carry-save counts in three planes, the
+    bit-sliced maximum from seven ORs and the flip of every variable at it,
+    the erasure vote as one inverse window; then unpacked."""
     code = T.get_code(name)
     s = qc_structure(name)
     M, R, Cc = s.m, s.n_block_rows, s.n_block_cols
-    V, n = Cc * M, code.n
-    t = {k: v.numpy() for k, v in cuda_bf._device_tables(code, torch.device("cpu")).items()}
-    table = t["table"]
-    i = np.arange(M)
-    out_bits, out_ok, out_it = [], [], []
-    for h in hard:
-        bits = np.zeros(V, np.int64)
-        bits[:n] = h
+    W = max(1, M // 32)
+    table, vote, vote_row = cuda_bf.kernel_table(code)
+    row_off, col_off = table[: R + 1], table[R + 1 : R + Cc + 2]
+    sumA = int(row_off[-1])
+    fwd, inv = table[R + Cc + 2 :].reshape(2, sumA, W)
+    B = len(hard)
+    bits = pack_replay(hard, M, Cc * W)
+    par = np.zeros((B, R * W), np.uint32)
 
-        def parity():
-            par = np.zeros(R * M, np.int64)
-            for r in range(R):
-                for e in range(t["row_off"][r], t["row_off"][r + 1]):
-                    a = table[e]
-                    par[r * M + i] ^= bits[a[1] * M + _perm_index(a, i, M)]
-            return par
+    def parity(r):
+        p = np.zeros((B, W), np.uint32)
+        for e in range(row_off[r], row_off[r + 1]):
+            p ^= window_replay(bits, fwd[e])
+        par[:, r * W : (r + 1) * W] = p
 
-        if maxiters > 0 and len(t["vote_edges"]):
-            par = parity()
-            vote = np.zeros(M, np.int64)
-            for e in t["vote_edges"]:
-                a = table[e]
-                vote += np.where(par[a[0] * M + _perm_inverse(a, i, M)] == 1, 1, -1)
-            bits[(Cc - 1) * M + i[vote > 0]] = 1
-        converged, it_done = 0, maxiters
-        for it in range(maxiters):
-            par = parity()
-            viol = np.zeros(V, np.int64)
-            for c in range(Cc):
-                for k in range(t["col_off"][c], t["col_off"][c + 1]):
-                    a = table[t["col_edges"][k]]
-                    viol[c * M + i] += par[a[0] * M + _perm_inverse(a, i, M)]
-            m = viol.max()
-            if m == 0:
-                converged, it_done = 1, it
-                break
-            bits[viol == m] ^= 1
-        out_bits.append(bits)
-        out_ok.append(converged)
-        out_it.append(it_done)
-    return np.asarray(out_bits, np.uint8), np.asarray(out_ok, bool), np.asarray(out_it, np.int32)
+    if maxiters > 0 and vote >= 0:
+        parity(vote_row)
+        bits[:, (Cc - 1) * W :] = window_replay(par, inv[vote])
+    active = np.ones(B, bool)
+    converged = np.zeros(B, bool)
+    it_done = np.full(B, maxiters, np.int32)
+    for it in range(maxiters):
+        if not active.any():
+            break
+        for r in range(R):
+            parity(r)
+        newly = active & ~(par != 0).any(axis=1)
+        converged |= newly
+        it_done[newly] = it
+        active &= ~newly
+        c0, c1, c2 = (np.zeros((B, Cc * W), np.uint32) for _ in range(3))
+        for c in range(Cc):
+            p0, p1, p2 = (np.zeros((B, W), np.uint32) for _ in range(3))
+            for e in range(col_off[c], col_off[c + 1]):
+                w = window_replay(par, inv[e])
+                k0 = p0 & w
+                p0 ^= w
+                p2 |= p1 & k0
+                p1 ^= k0
+            cols = slice(c * W, (c + 1) * W)
+            c0[:, cols], c1[:, cols], c2[:, cols] = p0, p1, p2
+
+        def any_(a):
+            return (a != 0).any(axis=1)[:, None]
+
+        m2 = any_(c2)
+        m1 = np.where(m2, any_(c2 & c1), any_(~c2 & c1))
+        m0 = np.where(m2, np.where(m1, any_(c2 & c1 & c0), any_(c2 & ~c1 & c0)),
+                      np.where(m1, any_(~c2 & c1 & c0), any_(~c2 & ~c1 & c0)))
+        eq = np.where(m2, c2, ~c2) & np.where(m1, c1, ~c1) & np.where(m0, c0, ~c0)
+        bits[active] ^= eq[active]
+    return unpack_replay(bits, M, Cc * M), converged, it_done
 
 
 @pytest.mark.parametrize(
     "name,maxiters", [("TM1280", 20), ("TM1280", 0), ("TC256", 20), ("TM6144", 1)]
 )
 def test_kernel_replay_matches_plain(name, maxiters):
-    """The CUDA kernel's algorithm (parity by perm_index per row, counts by
-    perm_inverse per column, erasure votes through vote_edges) gives the
-    plain version's bits, success and iterations."""
+    """The CUDA kernel's packed algorithm (window XORs for the parities,
+    carry-save counts, the bit-sliced maximum, the erasure vote as one
+    window) gives the plain version's bits, success and iterations."""
     rx = received(name, 6, seed=29, clean=1, heavy=2)
     bits, ok, iters = kernel_replay(name, rx, maxiters)
     want = bitflip_plain(qc_structure(name), torch.from_numpy(rx), maxiters)
