@@ -118,7 +118,26 @@ batch.
      failed frames only) on a TM8192 batch of 8192 at Eb/N0 1.1 dB: equal
      to the two stages composed by hand on the card, one launch of the bf16
      layered form and one of the f32 flooding form only if a frame failed,
-     and every converged frame's data bits those sent.
+     and every converged frame's data bits those sent;
+ 15. the launch table: for every code, kernel and dtype form,
+     ops/routing.ROUTES equals the kernel's launch_config, and the CTAs per SM
+     that sizes.decoder_memory reports at ptxas's registers (phase 1) equal
+     the card's occupancy calculator (each wrapper's card_ctas_per_sm); then
+     the memory table of `python -m labrador_ldpc_tpu_torch sizes`;
+ 16. serving (serve.py): 16 batches of TM8192, B=16384, 3 flips, 4 in
+     flight, every frame checked (converged, data bytes those sent), the
+     sustained frames/s and the pipelined slope's ms a decode dispatch; the
+     layered_minsum_f32 launches must equal the loop's dispatches (warm-up,
+     batches and the slope's);
+ 17. data parallelism on the card, TM8192, global batch 8192, one batch,
+     seed 0: the waterfall at Eb/N0 1.0 dB (impl="auto") on (a) one rank
+     of an NCCL process group and (b) two ranks spawned from this script
+     (`--rank`) sharing the card over Gloo, and (c) on those two ranks the
+     bit-flip point at BSC 0.006 and make_sharded_decoder on phase 5's first
+     batch (B=16384): counters equal to the unsharded run's, the sharded
+     decode equal to the unsharded one (a sha256 of bits, success and
+     iterations); each rank reports its own kernel launches, and a rank that
+     launched nothing fails the run.
 Then one JSON line `{"kernels": [...]}`; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -130,6 +149,7 @@ import csv
 import importlib
 import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
@@ -444,13 +464,119 @@ def load_parent(root: Path):
     return mod
 
 
+# phase 17's waterfall points: TM8192, global batch 8192, one batch, seed 0
+P17_MS = dict(code="TM8192", snrs_db=[1.0], batch=8192, max_bits=1, noise_model="ebn0",
+              seed=0, impl="auto")
+P17_BF = dict(code="TM8192", snrs_db=[0.006], batch=8192, max_bits=1, noise_model="bsc",
+              seed=0, decoder="bf")
+P17_FIELDS = ("trials", "bits", "bit_errors", "frame_errors", "decode_failures", "iterations")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def result_digest(res) -> str:
+    """sha256 of a decode result's success flags, iterations and bits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (res.success, res.iterations, res.bits):
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def serving_llrs(T, dev):
+    """Phase 5's first TM8192 serving batch (B=16384, 3 flips) as LLRs."""
+    import numpy as np
+    import torch
+
+    code = T.get_code("TM8192")
+    data = np.random.default_rng(0).integers(0, 256, (16384, code.k // 8), dtype=np.uint8)
+    cw = T.encode(code, torch.from_numpy(data).to(dev), dev)
+    cw[:, 0] ^= FLIPS
+    return T.hard_to_llrs(cw, torch.float32, dev)
+
+
+def allreduce_ms(mesh, reps: int = 20) -> float:
+    """Host-clock ms of one all_reduce of the five (5,) int32 counters."""
+    import torch
+
+    from labrador_ldpc_tpu_torch.parallel.mesh import all_reduce_sum
+
+    x = torch.zeros(5, dtype=torch.int32, device=mesh.device)
+    all_reduce_sum(mesh, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        all_reduce_sum(mesh, x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def rank_main(args) -> None:
+    """One of phase 17's ranks (`--rank R --port P`): the ranks share the card
+    over Gloo (NCCL refuses two ranks on one device) and drive the waterfall
+    points and the sharded decoder with the batch split over them. Prints one
+    line `RANK {json}` with the points, each case's kernel launches on this
+    rank and its wall time (each case runs once to warm up first)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import labrador_ldpc_tpu_torch as T
+    import torch.distributed as dist
+    from labrador_ldpc_tpu_torch.ops import cuda_bf, cuda_layered
+    from labrador_ldpc_tpu_torch.parallel import make_batch_mesh, make_sharded_decoder
+    from labrador_ldpc_tpu_torch.parallel.launch import initialize
+
+    initialize(f"127.0.0.1:{args.port}", args.world, args.rank, backend="gloo", device="cuda")
+    try:
+        mesh = make_batch_mesh(device="cuda")
+        out = {"rank": mesh.rank, "world": mesh.world_size, "device": str(mesh.device),
+               "backend": mesh.backend}
+        for key, kw, mod in (("ms", P17_MS, cuda_layered), ("bf", P17_BF, cuda_bf)):
+            T.waterfall(**kw, device="cuda", mesh=mesh)  # warm: the decoder, the kernel
+            torch.cuda.synchronize()
+            mod.launches = 0
+            t0 = time.perf_counter()
+            pt = T.waterfall(**kw, device="cuda", mesh=mesh)[0]
+            torch.cuda.synchronize()
+            out[key] = {"point": [getattr(pt, f) for f in P17_FIELDS],
+                        "launches": mod.launches, "s": time.perf_counter() - t0}
+        llrs = serving_llrs(T, mesh.device)
+        decode = make_sharded_decoder("TM8192", mesh, torch.float32, 50)
+        decode(llrs[: 2 * mesh.world_size])  # warm
+        torch.cuda.synchronize()
+        cuda_layered.launches = 0
+        t0 = time.perf_counter()
+        res = decode(llrs)
+        torch.cuda.synchronize()
+        out["decoder"] = {"digest": result_digest(res), "launches": cuda_layered.launches,
+                          "s": time.perf_counter() - t0, "frames": int(res.success.numel())}
+        out["allreduce_ms"] = allreduce_ms(mesh)
+        print("RANK " + json.dumps(out), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of the parent commit: phases 7, 9, 13 and 14 time its "
                          "sum-product, flooding and bit-flip kernels in turns with this one's, on "
                          "the same inputs")
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rank is not None:
+        return rank_main(args)
     import numpy as np
     import torch
 
@@ -491,6 +617,7 @@ def main() -> None:
     # check statistics must, so no stack frame for either of those
     built = dict(zip(sources, builds))
     sp_regs = {}  # registers of each sum-product instance, by widest row
+    layered_regs = {}  # registers of each layered min-sum instance, by (form, checks a thread)
     flood_regs = {}  # registers of each flooding instance, by (form, widest row)
     for source, kernel in templated.items():
         fns = ptxas_functions(built[source].log, kernel)
@@ -498,11 +625,13 @@ def main() -> None:
             print(f"    {name}: {regs}; {spill}")
             if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", spill):
                 fail(f"{name} spills registers: {spill}")
+            n_regs = int(re.search(r"Used (\d+) registers", regs).group(1))
             if source == cuda_layered.SOURCE:
+                form, k = name.split("<")[1].rstrip(">").split(", ")
+                layered_regs[form, int(k)] = n_regs
                 continue
             if not spill.startswith("0 bytes stack frame"):
                 fail(f"{name} has a stack frame: {spill}")
-            n_regs = int(re.search(r"Used (\d+) registers", regs).group(1))
             if source == cuda_sp.SOURCE:
                 k, w = map(int, re.findall(r"\d+", name))
                 if cuda_sp.INSTANCES.get(w) != k:
@@ -1598,6 +1727,154 @@ def main() -> None:
     if wrong:
         fail("a frame the two-stage decoder reports converged does not carry the data sent")
     print(f"  {smi}")
+
+    # ---- 15. routes and sizes ---------------------------------------------------------
+    phase("15 the launch table (ops/routing.py) and sizes: every code and form")
+    from labrador_ldpc_tpu_torch import sizes
+    from labrador_ldpc_tpu_torch.ops import routing
+
+    t15 = time.perf_counter()
+    n_checked = 0
+    for c in T.ALL_CODES:
+        r = routing.route_for(c)
+        _, _, _, _, row_max = cuda_layered._shape(c)
+        cases = []  # (impl, dtype, route entry, launch_config, ptxas registers, card CTAs/SM)
+        for dtype, form in forms.items():
+            for impl, mod, entry_, regs in (
+                    ("cuda_layered", cuda_layered, r.layered,
+                     layered_regs[form, cuda_layered.launch_config(c, dtype)["checks_per_thread"]]),
+                    ("cuda_qc", cuda_qc, r.flooding, flood_regs[form, row_max])):
+                cfg = mod.launch_config(c, dtype)
+                cases.append((impl, dtype, getattr(entry_, form),
+                              routing.Check(cfg["threads"], cfg["checks_per_thread"],
+                                            cfg["smem_bytes"]),
+                              regs, mod.card_ctas_per_sm(c, dtype)))
+        cfg = cuda_sp.launch_config(c)
+        cases.append(("cuda_sp", torch.float32, r.sumproduct,
+                      routing.Check(cfg["threads"], cfg["checks_per_thread"], cfg["smem_bytes"]),
+                      sp_regs[row_max], cuda_sp.card_ctas_per_sm(c)))
+        cfg = cuda_bf.launch_config(c)
+        cases.append(("cuda_bf", torch.float32, r.bitflip,
+                      routing.Lanes(cfg["threads"], cfg["lanes"], cfg["codewords_per_cta"],
+                                    cfg["smem_bytes"]),
+                      bf_regs, cuda_bf.card_ctas_per_sm(c)))
+        for impl, dtype, pinned, computed, regs, card in cases:
+            if pinned != computed:
+                fail(f"{c} {impl} {dtype}: ROUTES {pinned} != launch_config {computed}")
+            mem = sizes.decoder_memory(c, impl, dtype, registers=regs)
+            if mem.ctas_per_sm != card:
+                fail(f"{c} {impl} {dtype}: sizes reports {mem.ctas_per_sm} CTAs per SM at "
+                     f"ptxas's {regs} registers, the card's occupancy calculator {card}")
+            n_checked += 1
+    print(f"  {n_checked} (code, kernel, form) rows: ROUTES == launch_config, and sizes' CTAs per "
+          f"SM at ptxas's registers == the card's occupancy calculator "
+          f"({time.perf_counter() - t15:.2f} s)")
+    print(sizes.format_memory_table())
+
+    # ---- 16. serving -------------------------------------------------------------------
+    phase("16 serving (serve.py): TM8192, B=16384, 3 flips, 4 batches in flight, 16 batches")
+    from labrador_ldpc_tpu_torch.serve import serve
+
+    reset_launches()
+    rep = serve(16)
+    serve_launches = cuda_layered.launches
+    print(f"  {rep.frames} frames in {rep.seconds:.4f} s: {rep.frames_per_s:.1f} frames/s "
+          f"sustained (host clock, pinned non-blocking copies of success flags and data bytes, "
+          f"every frame checked); {rep.dispatch_s * 1e3:.4f} ms a decode dispatch "
+          f"(pipelined_slope, k=32, best of 3); failures {rep.failures}, wrong frames "
+          f"{rep.wrong}; launches of layered_minsum_f32 {serve_launches} (warm-up 1 + batches "
+          f"{rep.batches} + slope {rep.dispatches - 1 - rep.batches}); {smi}")
+    if rep.failures or rep.wrong:
+        fail("a served frame failed to converge or carried other data than was sent")
+    if serve_launches != rep.dispatches or cuda_layered.form_launches["f32"] != rep.dispatches:
+        fail(f"serving launched layered_minsum_f32 {serve_launches} times, not once a dispatch "
+             f"({rep.dispatches})")
+
+    # ---- 17. the data-parallel waterfall on the card -----------------------------------
+    phase("17 data parallelism: TM8192 waterfall, global batch 8192, one batch; NCCL one rank, "
+          "Gloo two ranks on the card; every case timed after one warm run")
+    import torch.distributed as dist
+
+    from labrador_ldpc_tpu_torch.parallel import make_batch_mesh
+    from labrador_ldpc_tpu_torch.parallel.launch import initialize
+
+    def fields(pt):
+        return [getattr(pt, f) for f in P17_FIELDS]
+
+    for kw in (P17_MS, P17_BF):
+        T.waterfall(**kw, device="cuda")  # warm
+    t0 = time.perf_counter()
+    want_ms = fields(T.waterfall(**P17_MS, device="cuda")[0])
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_bf = fields(T.waterfall(**P17_BF, device="cuda")[0])
+    one_bf_s = time.perf_counter() - t0
+    want_digest = result_digest(T.decode_ms("TM8192", serving_llrs(T, dev), maxiters=50))
+    print(f"  one process, no mesh: ms {dict(zip(P17_FIELDS, want_ms))} ({one_s:.3f} s); "
+          f"bf bsc 0.006 {dict(zip(P17_FIELDS, want_bf))} ({one_bf_s:.3f} s)")
+    # (a) one rank in an NCCL process group
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: the loopback suffices
+    initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = make_batch_mesh(device="cuda")
+        T.waterfall(**P17_MS, device="cuda", mesh=mesh)  # warm: NCCL's communicator
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = fields(T.waterfall(**P17_MS, device="cuda", mesh=mesh)[0])
+        torch.cuda.synchronize()
+        nccl_s = time.perf_counter() - t0
+        nccl_launches = cuda_layered.launches
+        nccl_ar_ms = allreduce_ms(mesh)
+    finally:
+        dist.destroy_process_group()
+    print(f"  (a) NCCL, 1 rank ({mesh.backend}, {mesh.device}): {dict(zip(P17_FIELDS, got))} "
+          f"in {nccl_s:.3f} s; layered_minsum_f32 launches {nccl_launches}; all_reduce of the "
+          f"counters {nccl_ar_ms:.4f} ms")
+    if got != want_ms:
+        fail("the NCCL one-rank waterfall's counters differ from the unsharded run's")
+    if nccl_launches < 1:
+        fail("the NCCL one-rank waterfall did not launch the layered kernel")
+    # (b), (c): two ranks on the card over Gloo
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank", str(r),
+                               "--world", "2", "--port", str(port)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in (0, 1)]
+    ranks = []
+    try:
+        for r, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                fail(f"phase 17 rank {r} exited {proc.returncode}:\n{err[-3000:]}")
+            line = [x for x in out.splitlines() if x.startswith("RANK ")]
+            if len(line) != 1:
+                fail(f"phase 17 rank {r} printed no result:\n{out[-2000:]}\n{err[-2000:]}")
+            ranks.append(json.loads(line[0][5:]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    gloo_s = time.perf_counter() - t0
+    for r in ranks:
+        print(f"  rank {r['rank']} of {r['world']} ({r['backend']}, {r['device']}): (b) ms "
+              f"{dict(zip(P17_FIELDS, r['ms']['point']))} in {r['ms']['s']:.3f} s, "
+              f"layered_minsum_f32 launches {r['ms']['launches']}; (c) bf "
+              f"{dict(zip(P17_FIELDS, r['bf']['point']))} in {r['bf']['s']:.3f} s, bitflip_u8 "
+              f"launches {r['bf']['launches']}; sharded decoder on phase 5's first batch "
+              f"({r['decoder']['frames']} frames) in {r['decoder']['s']:.3f} s, launches "
+              f"{r['decoder']['launches']}; all_reduce of the counters {r['allreduce_ms']:.4f} ms")
+        if r["ms"]["point"] != want_ms or r["bf"]["point"] != want_bf:
+            fail(f"rank {r['rank']}: the two-rank counters differ from the unsharded run's")
+        if r["decoder"]["digest"] != want_digest:
+            fail(f"rank {r['rank']}: the sharded decoder differs from the unsharded decode in "
+                 "bits, success or iterations")
+        if min(r["ms"]["launches"], r["bf"]["launches"], r["decoder"]["launches"]) < 1:
+            fail(f"rank {r['rank']} launched no kernel in a phase 17 case")
+    print(f"  two Gloo ranks: counters == the unsharded run's, the sharded decode == the "
+          f"unsharded one; {gloo_s:.3f} s with the ranks' start; {smi}")
 
     def entry(name, replaces, also, launches, row, max_abs_err):
         kind = name.split("_")[0]

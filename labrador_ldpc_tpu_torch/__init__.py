@@ -11,7 +11,10 @@ decoder (every dtype), the LLR quantizer, the
 Gallager bit-flip and erasure decoders (csrc/bitflip.cu), the sum-product
 decoders (flooding, and row-layered with csrc/sumproduct.cu), the AWGN, BSC
 and BEC trial steps and the BER/FER waterfall (also `python -m
-labrador_ldpc_tpu_torch waterfall`).
+labrador_ldpc_tpu_torch waterfall`), the waterfall and decoders split over
+the ranks of a process group (`parallel/`), the kernels' launch table and
+memory sizes (`ops/routing.py`, `sizes.py`, `python -m
+labrador_ldpc_tpu_torch sizes`) and the serving loop (`serve.py`).
 
 Entry points run on CUDA unless the caller passes device="cpu"::
 

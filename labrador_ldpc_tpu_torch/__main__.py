@@ -12,9 +12,12 @@ names and a `--device` flag (default cuda):
     python -m labrador_ldpc_tpu_torch waterfall --code TM8192 --snrs 1.1 \\
         --noise-model ebn0 --dtype bfloat16
     python -m labrador_ldpc_tpu_torch info
+    python -m labrador_ldpc_tpu_torch sizes
 
-The CSV schema matches the reference perftest (`code,snr,trials,bits,errors,
-ber`, perftest/src/main.rs:62).
+`sizes` prints the CUDA decoders' launch shapes and device memory per code
+(`sizes.format_memory_table`) and the reference crate's RAM table; it is
+plain Python and needs no card. The CSV schema matches the reference
+perftest (`code,snr,trials,bits,errors,ber`, perftest/src/main.rs:62).
 """
 
 from __future__ import annotations
@@ -126,6 +129,15 @@ def _cmd_info(args) -> int:
     return 0
 
 
+def _cmd_sizes(args) -> int:
+    from .sizes import format_memory_table, format_reference_table
+
+    print(format_memory_table())
+    print()
+    print(format_reference_table())
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="labrador_ldpc_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -175,6 +187,9 @@ def main(argv=None) -> int:
 
     i = sub.add_parser("info", help="print the code registry table")
     i.set_defaults(fn=_cmd_info)
+
+    z = sub.add_parser("sizes", help="print the per-code launch shape and memory tables")
+    z.set_defaults(fn=_cmd_sizes)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -39,6 +39,15 @@ A trial step draws its data and noise from an explicit `torch.Generator`
 data -> encode -> channel -> decode -> counters. `torch.Generator` does not
 reproduce `jax.random`, so the tests feed `apply` numpy-made data and noise
 on both sides.
+
+With a mesh (`parallel.mesh.BatchMesh`), `batch` is the global batch: every
+rank draws the whole global batch from the same generator and keeps its own
+rows (`parallel.mesh.batch_sharding`), encodes and decodes only those, and
+the five counters are summed over the ranks with one `all_reduce`. Every
+rank so sees the counters of the one-rank run, bit for bit (the JAX package
+gets the same from its placement-invariant threefry). The draw is a small
+part of a batch: 0.30-0.42 ms of a 56-94 ms TM8192 waterfall batch of 8192
+(PERF.md section 5; NVIDIA H100 80GB HBM3, 700.00 W).
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ from ..ops.qc_minsum import (
     make_ms_decoder_qc_int,
 )
 from ..ops.sumproduct import make_sp_decoder
+from ..parallel.mesh import BatchMesh, all_reduce_sum, batch_sharding
 
 __all__ = [
     "ChannelStats", "TrialStep", "default_llr_scale", "make_trial_step",
@@ -237,6 +247,9 @@ class TrialStep:
     (noise="bernoulli") or standard normal samples (noise="normal").
     `apply(data_bits, noise, param)` is the rest, with no randomness:
     encode -> `channel(cw_bits, noise, param)` -> `decoder` -> counters.
+    With a `mesh`, `batch` is the global batch, `draw` makes all of it,
+    `apply` takes all of it and decodes this rank's rows, and the counters
+    are summed over the mesh's ranks.
     """
 
     code: LDPCCode
@@ -246,6 +259,7 @@ class TrialStep:
     decoder: Callable  # decoder input (B, n) -> MSResult | BFResult
     impl: str  # the decoder's resolved implementation name
     device: torch.device
+    mesh: BatchMesh | None = None
 
     def draw(self, gen: torch.Generator, param: float) -> tuple[torch.Tensor, torch.Tensor]:
         B, dev = self.batch, self.device
@@ -258,9 +272,15 @@ class TrialStep:
     def apply(self, data_bits, noise, param: float) -> ChannelStats:
         data_bits = torch.as_tensor(data_bits, device=self.device).to(torch.uint8)
         noise = torch.as_tensor(noise, device=self.device)
+        if self.mesh is not None:
+            rows = batch_sharding(self.mesh, self.batch)
+            data_bits, noise = data_bits[rows], noise[rows]
         cw_bits = encode_bits(self.code, data_bits, self.device)
         res = self.decoder(self.channel(cw_bits, noise, param))
-        return _count_stats(self.batch, self.code.k, data_bits, res)
+        stats = _count_stats(data_bits.shape[0], self.code.k, data_bits, res)
+        if self.mesh is None:
+            return stats
+        return ChannelStats(*all_reduce_sum(self.mesh, torch.stack(stats)))
 
     def __call__(self, gen: torch.Generator, param: float) -> ChannelStats:
         return self.apply(*self.draw(gen, param), param)
@@ -288,6 +308,19 @@ def _awgn_true_llrs(cw_bits: torch.Tensor, noise: torch.Tensor, sigma) -> torch.
     return soft * torch.div(two, s * s)
 
 
+def _step_device(device, mesh: BatchMesh | None, batch: int) -> torch.device:
+    """The device of a trial step: `device`, or with a mesh the mesh's
+    device, which must be of the same type (no rank runs on the CPU when it
+    was asked for CUDA); the global batch must divide by the ranks."""
+    dev = resolve_device(device)
+    if mesh is None:
+        return dev
+    if mesh.device.type != dev.type:
+        raise ValueError(f"the mesh's ranks run on {mesh.device}, the step was asked for {dev}")
+    batch_sharding(mesh, batch)
+    return mesh.device
+
+
 def make_trial_step(
     code: LDPCCode | str,
     batch: int,
@@ -297,6 +330,7 @@ def make_trial_step(
     impl: str = "auto",
     llr_scale: float | None = None,
     device="cuda",
+    mesh: BatchMesh | None = None,
 ) -> TrialStep:
     """Soft-channel trial step: fn(gen, sigma) -> ChannelStats over `batch`
     codewords: random data -> encode -> BPSK +-1 -> AWGN(sigma) -> LLRs in
@@ -305,9 +339,11 @@ def make_trial_step(
     scale-invariant) and become true LLRs 2y/sigma^2 for the sum-product
     impls (`SP_IMPLS`); int8 and int16 are quantized with `quantize_llrs` at
     `llr_scale` (default `default_llr_scale`), which no other dtype takes;
-    bfloat16, float64 and int32 are the float32 LLRs cast."""
+    bfloat16, float64 and int32 are the float32 LLRs cast. With `mesh`,
+    `batch` is the global batch, split over the mesh's ranks (`TrialStep`),
+    and the step runs on the mesh's device."""
     code = get_code(code)
-    dev = resolve_device(device)
+    dev = _step_device(device, mesh, batch)
     dtype = _dtype_from_name(dtype_name)
     impl = resolve_impl(code, dtype, impl, dev)
     if llr_scale is not None and dtype not in SAT_DTYPES:
@@ -319,7 +355,7 @@ def make_trial_step(
         channel = _awgn
     else:
         channel = partial(_awgn_llrs, dtype=dtype, llr_scale=llr_scale)
-    return TrialStep(code, batch, "normal", channel, decoder, impl, dev)
+    return TrialStep(code, batch, "normal", channel, decoder, impl, dev, mesh)
 
 
 def make_two_stage_decoder(

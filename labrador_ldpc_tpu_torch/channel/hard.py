@@ -13,6 +13,10 @@ harness; these trial steps are that harness:
   * "perftest"/"ebn0": the soft AWGN channel of `awgn.py` at sigma,
     hard-sliced before decoding, so bit-flip and min-sum curves at equal dB
     differ by the decoders alone.
+
+Both trial steps take a mesh as `awgn.make_trial_step` does: `batch` is the
+global batch, each rank decodes its rows, the counters are summed over the
+ranks.
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ import torch
 
 from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
+from ..parallel.mesh import BatchMesh
 from .awgn import (
-    SP_IMPLS, ChannelStats, TrialStep, _awgn, _bpsk, _count_stats, _make_decoder, resolve_impl,
+    SP_IMPLS, ChannelStats, TrialStep, _awgn, _bpsk, _make_decoder, _step_device, resolve_impl,
 )
 
 __all__ = ["ChannelStats", "make_bf_trial_step", "make_ms_hard_trial_step", "resolve_bf_impl"]
@@ -84,15 +89,17 @@ def make_bf_trial_step(
     channel: str = "bsc",
     impl: str = "auto",
     device="cuda",
+    mesh: BatchMesh | None = None,
 ) -> TrialStep:
     """Hard-decision trial step: fn(gen, param) -> ChannelStats over `batch`
     codewords: random data -> encode -> hard channel -> bit-flip decode ->
     counters, on `device`. `param` is the flip probability p ("bsc"), the
     erasure probability f ("bec"), or the noise sigma of the AWGN
     hard-decision channels ("perftest"/"ebn0"; `awgn.noise_sigma` maps dB
-    to sigma)."""
+    to sigma). With `mesh`, `batch` is the global batch, split over the
+    mesh's ranks."""
     code = get_code(code)
-    dev = resolve_device(device)
+    dev = _step_device(device, mesh, batch)
     noise = _noise_kind(channel, ("bsc", "bec", "perftest", "ebn0"))
     impl = resolve_bf_impl(code, impl, dev)
     decoder = _make_bf_decoder(code, maxiters, impl, dev)
@@ -100,7 +107,7 @@ def make_bf_trial_step(
     def rx(cw_bits, n, param):
         return _hard_channel_rx(channel, cw_bits, n, param)
 
-    return TrialStep(code, batch, noise, rx, decoder, impl, dev)
+    return TrialStep(code, batch, noise, rx, decoder, impl, dev, mesh)
 
 
 def make_ms_hard_trial_step(
@@ -110,6 +117,7 @@ def make_ms_hard_trial_step(
     channel: str = "bsc",
     impl: str = "auto",
     device="cuda",
+    mesh: BatchMesh | None = None,
 ) -> TrialStep:
     """Min-sum driven by hard channel output: the hard bits enter as +-1
     LLRs (the decode_ms side of the reference's bit-flip vs min-sum
@@ -119,9 +127,10 @@ def make_ms_hard_trial_step(
     The sum-product impls are refused: BP is not scale-invariant, and fixed
     +-1 LLRs instead of the hard channel's true LLRs would give biased
     curves (the JAX package computes them silently,
-    labrador_ldpc_tpu/channel/hard.py:200)."""
+    labrador_ldpc_tpu/channel/hard.py:200). `mesh` as in
+    `make_bf_trial_step`."""
     code = get_code(code)
-    dev = resolve_device(device)
+    dev = _step_device(device, mesh, batch)
     noise = _noise_kind(channel, ("bsc", "perftest", "ebn0"))
     impl = resolve_impl(code, torch.float32, impl, dev)
     if impl in SP_IMPLS:
@@ -135,4 +144,4 @@ def make_ms_hard_trial_step(
     def llrs(cw_bits, n, param):
         return _bpsk(_hard_channel_rx(channel, cw_bits, n, param))
 
-    return TrialStep(code, batch, noise, llrs, decoder, impl, dev)
+    return TrialStep(code, batch, noise, llrs, decoder, impl, dev, mesh)

@@ -11,6 +11,11 @@ launch order, which is also drain order) draws from a `torch.Generator`
 seeded by (seed, i) alone, so a resumed sweep continues the same stream. The
 streams are PyTorch's (per device type), not `jax.random`'s: the counters
 match the JAX package's statistically, not trial for trial.
+
+With a mesh (`parallel.mesh.BatchMesh`) the batch is split over the mesh's
+ranks and every batch's counters are summed over them (`awgn.TrialStep`), so
+every rank reads the same global counters and takes the same stopping
+decision at the same batch; only rank 0 writes `csv_out` and `verbose`.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 
 from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
+from ..parallel.mesh import BatchMesh
 from .awgn import make_trial_step, noise_sigma
 
 __all__ = ["SnrPoint", "waterfall", "DEFAULT_SNRS_TC512"]
@@ -133,7 +139,7 @@ def _batch_generator(seed: int, index: int, device: torch.device) -> torch.Gener
 
 
 def _make_step(code, batch, maxiters, noise_model, dtype_name, alpha, impl, llr_scale,
-               decoder, dev):
+               decoder, dev, mesh):
     """The trial step of a decode surface; refuses noise models the surface
     does not take and arguments it would ignore."""
     if decoder not in _NOISE_MODELS:
@@ -144,7 +150,8 @@ def _make_step(code, batch, maxiters, noise_model, dtype_name, alpha, impl, llr_
             f"not {noise_model!r}"
         )
     if decoder == "ms":
-        return make_trial_step(code, batch, maxiters, dtype_name, alpha, impl, llr_scale, dev)
+        return make_trial_step(code, batch, maxiters, dtype_name, alpha, impl, llr_scale, dev,
+                               mesh)
     if dtype_name != "float32" or alpha is not None or llr_scale is not None:
         raise ValueError(
             f"decoder {decoder!r} takes hard bits: dtype_name, alpha and llr_scale apply to "
@@ -153,7 +160,7 @@ def _make_step(code, batch, maxiters, noise_model, dtype_name, alpha, impl, llr_
     from .hard import make_bf_trial_step, make_ms_hard_trial_step
 
     make = make_bf_trial_step if decoder == "bf" else make_ms_hard_trial_step
-    return make(code, batch, maxiters, noise_model, impl, dev)
+    return make(code, batch, maxiters, noise_model, impl, dev, mesh)
 
 
 def waterfall(
@@ -175,6 +182,7 @@ def waterfall(
     checkpoint=None,
     decoder: str = "ms",
     device="cuda",
+    mesh: BatchMesh | None = None,
 ) -> list[SnrPoint]:
     """Run a BER/FER waterfall sweep on `device`; returns one SnrPoint per SNR.
 
@@ -207,16 +215,30 @@ def waterfall(
     interruption raced the bit-error budget tripping, the resumed run may
     count up to pipeline_depth fewer in-flight batches; both are valid
     stopping outcomes under the reference protocol.
+
+    With `mesh`, `batch` is the global batch, split over the mesh's ranks
+    (it must divide by them), and the sweep runs on the mesh's device, which
+    must be of `device`'s type; every rank returns the same points and only
+    rank 0 prints. A checkpoint with more than one rank is refused: every
+    rank would append to the same file (the JAX package passes it to every
+    process, labrador_ldpc_tpu/parallel/launch.py:79-86).
     """
     code = get_code(code)
     dev = resolve_device(device)
     k = code.k
     if seed < 0:
         raise ValueError(f"seed must be >= 0, got {seed}")
+    if mesh is not None:
+        if checkpoint is not None and mesh.world_size > 1:
+            raise ValueError(f"a checkpoint takes one rank; this mesh has {mesh.world_size}, "
+                             "and every rank would append to the same file")
+        if mesh.rank != 0:
+            csv_out, verbose = None, False
     # the checkpoint config records the resolved impl: a checkpoint written
     # with the kernel must not resume onto another decoder
     step = _make_step(code, batch, maxiters, noise_model, dtype_name, alpha, impl, llr_scale,
-                      decoder, dev)
+                      decoder, dev, mesh)
+    dev = step.device
     ckpt = None
     next_batch = 0
     if checkpoint is not None:

@@ -32,6 +32,7 @@ from ._nvcc import load_library
 from .bitflip import BFResult, _hard_input, bitflip_plain
 from .cuda_layered import CTA_SHARED_MAX, addend_table
 from .cuda_sp import REGISTERS_PER_THREAD, ctas_per_sm
+from .routing import route_for
 
 __all__ = ["make_bf_decoder_cuda", "bitflip", "vote_addends", "window_table", "kernel_table",
            "launch_config", "card_ctas_per_sm", "SOURCE"]
@@ -265,6 +266,7 @@ def make_bf_decoder_cuda(code: LDPCCode | str, maxiters: int = 20, device="cuda"
     `device="cpu"` runs the plain version.
     """
     code = get_code(code)
+    route_for(code)  # an unrouted code fails here, before any launch
     dev = resolve_device(device)
 
     def decode(hard_bits) -> BFResult:

@@ -33,6 +33,7 @@ from ..device import resolve_device
 from ._nvcc import load_library
 from .minsum import MSResult
 from .qc_minsum import KERNEL_DTYPES, check_llrs, layered_minsum_plain
+from .routing import route_for
 
 __all__ = ["make_ms_decoder_cuda_layered", "layered_minsum", "addend_table",
            "addend_descriptors", "launch_config", "card_ctas_per_sm", "FORMS", "SOURCE"]
@@ -234,6 +235,7 @@ def make_ms_decoder_cuda_layered(
     LLRs (a float32 alpha, as the TPU kernels', also for bfloat16).
     """
     code = get_code(code)
+    route_for(code)  # an unrouted code fails here, before any launch
     dev = resolve_device(device)
 
     def decode(llrs) -> MSResult:

@@ -38,6 +38,7 @@ from .cuda_layered import CTA_SHARED_MAX, FORMS, _shape, addend_descriptors, add
 from .cuda_sp import REGISTERS_PER_THREAD, ctas_per_sm
 from .minsum import MSResult
 from .qc_minsum import KERNEL_DTYPES, check_llrs, flooding_minsum_plain
+from .routing import route_for
 
 __all__ = ["make_ms_decoder_cuda_qc", "flooding_minsum", "flooding_schedule", "flooding_runs",
            "launch_config", "card_ctas_per_sm", "INSTANCES", "SOURCE"]
@@ -214,6 +215,7 @@ def make_ms_decoder_cuda_qc(
     `make_ms_decoder_qc_int`'s; `alpha` needs float LLRs.
     """
     code = get_code(code)
+    route_for(code)  # an unrouted code fails here, before any launch
     dev = resolve_device(device)
 
     def decode(llrs) -> MSResult:

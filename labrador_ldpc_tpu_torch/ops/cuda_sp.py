@@ -30,6 +30,7 @@ from ._nvcc import load_library
 from .cuda_layered import (CTA_RESERVED_BYTES, CTA_SHARED_MAX, MAX_CTAS_PER_SM, SM_SHARED_BYTES,
                            _kernel_tables, _shape)
 from .minsum import MSResult
+from .routing import route_for
 from .sumproduct import check_sp_llrs, layered_sp_plain
 
 __all__ = ["make_sp_decoder_cuda", "layered_sp", "launch_config", "card_ctas_per_sm",
@@ -161,6 +162,7 @@ def make_sp_decoder_cuda(code: LDPCCode | str, maxiters: int = 100, device="cuda
     `make_sp_decoder_layered`.
     """
     code = get_code(code)
+    route_for(code)  # an unrouted code fails here, before any launch
     dev = resolve_device(device)
 
     def decode(llrs) -> MSResult:

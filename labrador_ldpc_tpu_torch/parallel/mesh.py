@@ -1,0 +1,160 @@
+"""Data parallelism over ranks: the batch split, counters summed across them.
+
+PyTorch counterpart of `labrador_ldpc_tpu/parallel/mesh.py`. The reference
+library's only concurrency is the perftest's thread pool with an AtomicU64
+counter merge (perftest/src/main.rs:39-49); the JAX package shards the
+codeword batch over a 1-D device mesh and sums the counters with psum. Here
+a mesh is the ranks of a `torch.distributed` process group, one process a
+rank: each rank decodes its rows of the global batch on its own device, and
+the counters are summed with one `all_reduce`, the decoded rows gathered
+with `all_gather_into_tensor`. A codeword is at most 10,240 LLRs, so the
+batch is the only dimension to split.
+
+A single process with no process group is a mesh of one rank. Under the
+Gloo backend the collectives run on host copies of CUDA tensors (Gloo's
+collectives are host collectives); NCCL runs them on the card.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+
+from ..codes.params import LDPCCode, get_code
+from ..device import resolve_device
+
+__all__ = [
+    "BatchMesh",
+    "make_batch_mesh",
+    "batch_sharding",
+    "make_sharded_decoder",
+    "make_sharded_trial_step",
+]
+
+
+@dataclass(frozen=True)
+class BatchMesh:
+    """This process's place among the ranks that split a batch."""
+
+    rank: int
+    world_size: int
+    device: torch.device  # the device this rank decodes on
+    group: object = None  # the process group; None: the default group
+    backend: str | None = None  # the group's backend; None: no process group
+
+
+def make_batch_mesh(group=None, device="cuda") -> BatchMesh:
+    """The mesh of `group` (the default process group when None) for this
+    process. A CUDA rank takes card LOCAL_RANK modulo the cards present
+    (LOCAL_RANK defaults to the rank) and makes it the current card, so
+    ranks may share one card. Without an initialized process group the mesh
+    is this process alone."""
+    dev = resolve_device(device)
+    if dist.is_available() and dist.is_initialized():
+        rank, world = dist.get_rank(group), dist.get_world_size(group)
+        backend = dist.get_backend(group)
+    else:
+        if group is not None:
+            raise ValueError("a process group was given, but torch.distributed is not initialized")
+        rank, world, backend = 0, 1, None
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(dev)  # NCCL builds its communicator on the current card
+    return BatchMesh(rank, world, dev, group, backend)
+
+
+def batch_sharding(mesh: BatchMesh, batch: int) -> slice:
+    """This rank's rows of a global batch of `batch` codewords."""
+    if batch % mesh.world_size:
+        raise ValueError(f"the global batch {batch} does not divide by the {mesh.world_size} "
+                         "ranks of the mesh")
+    per = batch // mesh.world_size
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+def _on_host(mesh: BatchMesh, t: torch.Tensor) -> bool:
+    return mesh.backend == "gloo" and t.device.type != "cpu"
+
+
+def all_reduce_sum(mesh: BatchMesh, t: torch.Tensor) -> torch.Tensor:
+    """`t` summed over the mesh's ranks, in place (on a host copy under
+    Gloo); `t` itself with one rank and no process group."""
+    if mesh.backend is None:
+        return t
+    x = t.cpu() if _on_host(mesh, t) else t
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.group)
+    return x.to(t.device)
+
+
+def all_gather_rows(mesh: BatchMesh, t: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of `t`, concatenated in rank order."""
+    if mesh.backend is None:
+        return t
+    x = t.cpu() if _on_host(mesh, t) else t
+    out = torch.empty((mesh.world_size * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.group)
+    return out.to(t.device)
+
+
+def make_sharded_decoder(
+    code: LDPCCode | str,
+    mesh: BatchMesh,
+    dtype: torch.dtype = torch.float32,
+    maxiters: int = 20,
+    alpha: float | None = None,
+    impl: str = "auto",
+):
+    """Batched min-sum decoder with the batch split over the mesh's ranks.
+
+    Returns fn(llrs: the GLOBAL (B, n) LLRs) -> MSResult of the whole batch,
+    on every rank: each rank decodes its rows (`batch_sharding`) on its
+    device and the bits, success flags (gathered as uint8) and iteration
+    counts are gathered from all ranks. B must divide by the ranks. `impl`
+    is resolved for the mesh's device before the decoder is built ("auto" is
+    the layered CUDA kernel on a card), as `channel.awgn.resolve_impl`.
+    """
+    from ..channel.awgn import _make_decoder, resolve_impl
+    from ..ops.minsum import MSResult
+
+    code = get_code(code)
+    impl = resolve_impl(code, dtype, impl, mesh.device)
+    decoder = _make_decoder(code, dtype, maxiters, alpha, impl, mesh.device)
+
+    def decode(llrs) -> MSResult:
+        llrs = torch.as_tensor(llrs, device=mesh.device)
+        res = decoder(llrs[batch_sharding(mesh, llrs.shape[0])])
+        return MSResult(
+            success=all_gather_rows(mesh, res.success.to(torch.uint8)).bool(),
+            iterations=all_gather_rows(mesh, res.iterations),
+            bits=all_gather_rows(mesh, res.bits),
+        )
+
+    return decode
+
+
+def make_sharded_trial_step(
+    code: LDPCCode | str,
+    global_batch: int,
+    mesh: BatchMesh,
+    maxiters: int = 100,
+    dtype: torch.dtype | str = torch.float32,
+    alpha: float | None = None,
+    impl: str = "auto",
+    llr_scale: float | None = None,
+):
+    """End-to-end channel trial step with the batch split over the mesh.
+
+    Returns fn(gen, sigma) -> ChannelStats of the whole `global_batch`, the
+    same on every rank. A thin wrapper over `channel.awgn.make_trial_step(...,
+    mesh=mesh)`, which holds the one definition of the trial pipeline.
+    """
+    from ..channel.awgn import make_trial_step
+
+    name = dtype if isinstance(dtype, str) else str(dtype).removeprefix("torch.")
+    return make_trial_step(get_code(code), global_batch, maxiters, name, alpha, impl, llr_scale,
+                           mesh.device, mesh=mesh)

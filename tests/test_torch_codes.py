@@ -122,11 +122,13 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules\n"
         "             if m in roots or any(m.startswith(r + '.') for r in roots))\n"
         "n = sum(1 for m in sys.modules if m.startswith('labrador_ldpc_tpu_torch.'))\n"
-        "new = [f'labrador_ldpc_tpu_torch.ops.{m}'\n"
-        "       for m in ('cuda_qc', 'qc_minsum', 'minsum', 'sumproduct', 'cuda_sp')]\n"
+        "new = [f'labrador_ldpc_tpu_torch.{m}'\n"
+        "       for m in ('ops.cuda_qc', 'ops.qc_minsum', 'ops.minsum', 'ops.sumproduct',\n"
+        "                 'ops.cuda_sp', 'ops.routing', 'parallel.mesh', 'parallel.launch',\n"
+        "                 'sizes', 'utils.timing', 'serve', 'entry')]\n"
         "missing = [m for m in new if m not in sys.modules]\n"
         "print(n, bad, missing)\n"
-        "sys.exit(1 if bad or missing or n < 18 else 0)\n"
+        "sys.exit(1 if bad or missing or n < 32 else 0)\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120
