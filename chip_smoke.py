@@ -137,7 +137,18 @@ batch.
      batch (B=16384): counters equal to the unsharded run's, the sharded
      decode equal to the unsharded one (a sha256 of bits, success and
      iterations); each rank reports its own kernel launches, and a rank that
-     launched nothing fails the run.
+     launched nothing fails the run. On the NCCL rank and on both Gloo
+     ranks: (d) the 1.0 dB point for three batches, plain and checkpointed
+     (rank 0 alone writes the file), then cut by rank 0 to the config and the
+     first point line and resumed after a barrier: the counters of all three
+     equal the unsharded run's and the point lines are one writer's, with
+     the walls of the plain and the checkpointed point, the ms of the
+     resumed open's own broadcast and the mean of 20 warm ones; (e) the sum-product kernel (TM8192 true LLRs at
+     Eb/N0 0.9 dB, 8192 frames, maxiters 100), (f) the bit-flip kernel
+     (TM8192 BSC 0.006, 8192 frames, make_sharded_bf_decoder) and (g) the
+     int8 layered and bf16 flooding forms on phase 5's first batch, each
+     split over the ranks: the sha256 equal to the unsharded decode's, and
+     each form launched on each rank.
 Then one JSON line `{"kernels": [...]}`; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -153,6 +164,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -470,14 +482,16 @@ P17_MS = dict(code="TM8192", snrs_db=[1.0], batch=8192, max_bits=1, noise_model=
 P17_BF = dict(code="TM8192", snrs_db=[0.006], batch=8192, max_bits=1, noise_model="bsc",
               seed=0, decoder="bf")
 P17_FIELDS = ("trials", "bits", "bit_errors", "frame_errors", "decode_failures", "iterations")
-
-
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+# (d): the min-sum point for three batches of 8192 (k = 4096), checkpointed
+P17_CKPT = dict(P17_MS, max_bits=3 * 8192 * 4096, max_bit_errors=10**9)
+# (e)-(g): the decodes split over the ranks, each held to its unsharded
+# sha256: (case, kernel form launched, label)
+P17_SPLIT = (
+    ("sp", "sumproduct_f32", "(e) TM8192 true LLRs at 0.9 dB, 8192 frames, cuda_sp, maxiters 100"),
+    ("bf", "bitflip_u8", "(f) TM8192 BSC 0.006, 8192 frames, make_sharded_bf_decoder, maxiters 50"),
+    ("i8", "layered_minsum_i8", "(g) phase 5's first batch in int8, cuda_layered, maxiters 50"),
+    ("bf16", "flooding_minsum_bf16", "(g) phase 5's first batch in bf16, cuda_qc, maxiters 50"),
+)
 
 
 def result_digest(res) -> str:
@@ -518,12 +532,173 @@ def allreduce_ms(mesh, reps: int = 20) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def p17_inputs(T, dev) -> dict:
+    """Phase 17 (e)-(g)'s inputs, the same in every process on the card (one
+    seeded card generator): TM8192 true LLRs 2y/sigma^2 at Eb/N0 0.9 dB and
+    TM8192 hard bits through BSC 0.006, 8192 frames each; phase 5's first
+    serving batch quantized to int8 and cast to bf16."""
+    import torch
+
+    from labrador_ldpc_tpu_torch.channel.awgn import _awgn_true_llrs
+
+    code = T.get_code("TM8192")
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def codewords():
+        data = torch.randint(0, 2, (8192, code.k), generator=gen, device=dev, dtype=torch.uint8)
+        return T.encode_bits(code, data, dev)
+
+    cw = codewords()
+    sp = _awgn_true_llrs(cw, torch.randn(cw.shape, generator=gen, device=dev),
+                         T.noise_sigma(0.9, code, "ebn0"))
+    cw = codewords()
+    bf = cw ^ (torch.rand(cw.shape, generator=gen, device=dev) < 0.006).to(torch.uint8)
+    llrs = serving_llrs(T, dev)
+    return {"sp": sp, "bf": bf, "i8": T.quantize_llrs(llrs, torch.int8),
+            "bf16": llrs.to(torch.bfloat16)}
+
+
+def p17_decoders(T, mesh=None) -> dict:
+    """Phase 17 (e)-(g)'s decoders, split over `mesh`'s ranks, or unsharded
+    on the card without a mesh."""
+    import torch
+
+    from labrador_ldpc_tpu_torch.parallel import make_sharded_bf_decoder, make_sharded_decoder
+
+    if mesh is None:
+        return {
+            "sp": T.make_sp_decoder_cuda("TM8192", 100),
+            "bf": T.make_bf_decoder_cuda("TM8192", 50),
+            "i8": lambda x: T.decode_ms("TM8192", x, maxiters=50, impl="cuda_layered"),
+            "bf16": lambda x: T.decode_ms("TM8192", x, maxiters=50, impl="cuda_qc"),
+        }
+    return {
+        "sp": make_sharded_decoder("TM8192", mesh, torch.float32, 100, impl="cuda_sp"),
+        "bf": make_sharded_bf_decoder("TM8192", mesh, 50, impl="cuda"),
+        "i8": make_sharded_decoder("TM8192", mesh, torch.int8, 50, impl="cuda_layered"),
+        "bf16": make_sharded_decoder("TM8192", mesh, torch.bfloat16, 50, impl="cuda_qc"),
+    }
+
+
+def kernel_launches(form: str) -> int:
+    """Launches of a kernel form since its counter was last set to 0."""
+    from labrador_ldpc_tpu_torch.ops import cuda_bf, cuda_layered, cuda_qc, cuda_sp
+
+    if form in ("sumproduct_f32", "bitflip_u8"):
+        return (cuda_sp if form == "sumproduct_f32" else cuda_bf).launches
+    kind, _, dtype = form.split("_")
+    return (cuda_layered if kind == "layered" else cuda_qc).form_launches[dtype]
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch counters to 0."""
+    from labrador_ldpc_tpu_torch.ops import cuda_bf, cuda_layered, cuda_qc, cuda_sp
+
+    for mod in (cuda_layered, cuda_qc, cuda_bf, cuda_sp):
+        mod.launches = 0
+    for mod in (cuda_layered, cuda_qc):
+        for form in mod.form_launches:
+            mod.form_launches[form] = 0
+
+
+def split_cases(T, mesh) -> dict:
+    """Phase 17 (e)-(g) on this rank: each decode split over the mesh, timed
+    after one warm run of the same decode (the first run at a size also
+    allocates its buffers and the gather's), with this rank's launches of
+    its kernel form and the sha256 of the gathered result."""
+    import torch
+
+    inputs, decoders = p17_inputs(T, mesh.device), p17_decoders(T, mesh)
+    out = {}
+    for case, form, _ in P17_SPLIT:
+        decoders[case](inputs[case])  # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = decoders[case](inputs[case])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0  # before the digest's copy to the host
+        out[case] = {"digest": result_digest(res), "launches": kernel_launches(form), "s": wall}
+    return out
+
+
+def checkpoint_cycle(T, mesh, path: Path) -> dict:
+    """Phase 17 (d) on this rank: P17_CKPT (three batches) without and with a
+    checkpoint at `path` (the same path on every rank), each timed after one
+    warm run; rank 0 cuts the file to the config and the first point line,
+    every rank meets at a barrier and resumes. Returns the counters of the
+    three runs, their walls, this rank's launches of the layered kernel in
+    the checkpointed run, the `batches` of the file's point lines (rank 0)
+    before the cut and after the resume, the ms of the resumed run's own
+    broadcast at open (one cold call, timed inside the open) and the mean ms
+    of 20 warm broadcast_object calls of the same payload."""
+    import torch
+    import torch.distributed as dist
+
+    from labrador_ldpc_tpu_torch.parallel import broadcast_object
+
+    # the module, not the function `channel` exports under the same name
+    waterfall_module = importlib.import_module("labrador_ldpc_tpu_torch.channel.waterfall")
+
+    def run(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt = T.waterfall(**P17_CKPT, device="cuda", mesh=mesh, **kw)[0]
+        torch.cuda.synchronize()
+        return [getattr(pt, f) for f in P17_FIELDS], time.perf_counter() - t0
+
+    def records():
+        return [json.loads(line) for line in path.read_text().splitlines()]
+
+    def batches():
+        return [r["batches"] for r in records() if r["kind"] == "point"] if mesh.rank == 0 else None
+
+    opens = []  # (ms, payload) of each broadcast the open makes
+
+    def timed_broadcast(m, obj):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = broadcast_object(m, obj)
+        torch.cuda.synchronize()
+        opens.append(((time.perf_counter() - t0) * 1e3, got))
+        return got
+
+    run()  # warm
+    out = {}
+    out["plain"], out["plain_s"] = run()
+    reset_launches()
+    out["full"], out["ckpt_s"] = run(checkpoint=path)
+    out["launches"] = kernel_launches("layered_minsum_f32")
+    out["batches_full"] = batches()
+    if mesh.rank == 0:  # the interruption
+        recs = records()
+        path.write_text("".join(json.dumps(r) + "\n" for r in recs[:2]))
+    dist.barrier()
+    waterfall_module.broadcast_object = timed_broadcast
+    try:
+        out["resumed"], out["resumed_s"] = run(checkpoint=path)
+    finally:
+        waterfall_module.broadcast_object = broadcast_object
+    out["batches_resumed"] = batches()
+    if len(opens) != 1:
+        fail(f"the resumed checkpointed run made {len(opens)} broadcasts, not one at open")
+    out["open_ms"], state = opens[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        broadcast_object(mesh, state)
+    torch.cuda.synchronize()
+    out["broadcast_ms"] = (time.perf_counter() - t0) * 1e3 / 20
+    return out
+
+
 def rank_main(args) -> None:
     """One of phase 17's ranks (`--rank R --port P`): the ranks share the card
     over Gloo (NCCL refuses two ranks on one device) and drive the waterfall
-    points and the sharded decoder with the batch split over them. Prints one
-    line `RANK {json}` with the points, each case's kernel launches on this
-    rank and its wall time (each case runs once to warm up first)."""
+    points, the sharded decoder, the checkpoint cycle in `--work` (d) and the
+    split decodes (e)-(g) with the batch split over them. Prints one line
+    `RANK {json}` with the points, each case's kernel launches on this rank
+    and its wall time (each case runs once to warm up first)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -557,9 +732,12 @@ def rank_main(args) -> None:
         t0 = time.perf_counter()
         res = decode(llrs)
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0  # before the digest's copy to the host
         out["decoder"] = {"digest": result_digest(res), "launches": cuda_layered.launches,
-                          "s": time.perf_counter() - t0, "frames": int(res.success.numel())}
+                          "s": wall, "frames": int(res.success.numel())}
         out["allreduce_ms"] = allreduce_ms(mesh)
+        out["ckpt"] = checkpoint_cycle(T, mesh, args.work / "p17_gloo.jsonl")
+        out["split"] = split_cases(T, mesh)
         print("RANK " + json.dumps(out), flush=True)
     finally:
         dist.destroy_process_group()
@@ -574,6 +752,7 @@ def main() -> None:
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--work", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank is not None:
         return rank_main(args)
@@ -675,13 +854,6 @@ def main() -> None:
     cuda_bf._lib()
     cuda_sp._lib()
     forms = cuda_layered.FORMS  # dtype -> "f32" | "bf16" | "i8" | "i16"
-
-    def reset_launches():
-        for mod in (cuda_layered, cuda_qc, cuda_bf, cuda_sp):
-            mod.launches = 0
-        for mod in (cuda_layered, cuda_qc):
-            for form in mod.form_launches:
-                mod.form_launches[form] = 0
 
     def minsum_launches() -> dict[str, int]:
         """Launches of each min-sum kernel form since the last reset."""
@@ -1796,10 +1968,13 @@ def main() -> None:
     import torch.distributed as dist
 
     from labrador_ldpc_tpu_torch.parallel import make_batch_mesh
-    from labrador_ldpc_tpu_torch.parallel.launch import initialize
+    from labrador_ldpc_tpu_torch.parallel.launch import free_port, initialize, run_processes
 
     def fields(pt):
         return [getattr(pt, f) for f in P17_FIELDS]
+
+    work_dir = tempfile.TemporaryDirectory()  # (d)'s checkpoint files
+    work = Path(work_dir.name)
 
     for kw in (P17_MS, P17_BF):
         T.waterfall(**kw, device="cuda")  # warm
@@ -1812,6 +1987,38 @@ def main() -> None:
     want_digest = result_digest(T.decode_ms("TM8192", serving_llrs(T, dev), maxiters=50))
     print(f"  one process, no mesh: ms {dict(zip(P17_FIELDS, want_ms))} ({one_s:.3f} s); "
           f"bf bsc 0.006 {dict(zip(P17_FIELDS, want_bf))} ({one_bf_s:.3f} s)")
+    want_ckpt = fields(T.waterfall(**P17_CKPT, device="cuda")[0])
+    inputs, decoders = p17_inputs(T, dev), p17_decoders(T)
+    want_split = {case: result_digest(decoders[case](inputs[case])) for case, _, _ in P17_SPLIT}
+    del inputs, decoders
+    print(f"  one process, no mesh: ms three batches {dict(zip(P17_FIELDS, want_ckpt))}")
+
+    def hold_ckpt(who, c):
+        """(d)'s checks of one rank's checkpoint cycle."""
+        print(f"  {who} (d) checkpoint cycle, three batches: plain {c['plain_s']:.3f} s, "
+              f"checkpointed {c['ckpt_s']:.3f} s, resumed from one batch {c['resumed_s']:.3f} s; "
+              f"layered_minsum_f32 launches {c['launches']}; point lines' batches "
+              f"{c['batches_full']} written, {c['batches_resumed']} after the resume; "
+              f"the resumed open's broadcast_object {c['open_ms']:.4f} ms (one cold call), "
+              f"{c['broadcast_ms']:.4f} ms (mean of 20 warm calls of the same payload)")
+        if not c["plain"] == c["full"] == c["resumed"] == want_ckpt:
+            fail(f"{who}: the checkpointed or resumed counters differ from the unsharded run's")
+        if c["launches"] < 1:
+            fail(f"{who}: the checkpointed point launched no layered kernel")
+        for lines in (c["batches_full"], c["batches_resumed"]):
+            if lines is not None and lines != [1, 2, 3, 3]:
+                fail(f"{who}: the checkpoint's point lines are not one writer's: {lines}")
+
+    def hold_split(who, split):
+        """(e)-(g)'s checks of one rank's split decodes."""
+        for case, form, label in P17_SPLIT:
+            r = split[case]
+            print(f"  {who} {label}: {r['s']:.3f} s, {form} launches {r['launches']}")
+            if r["digest"] != want_split[case]:
+                fail(f"{who}: the split {label} differs from the unsharded decode")
+            if r["launches"] < 1:
+                fail(f"{who}: the split {label} launched no {form}")
+
     # (a) one rank in an NCCL process group
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: the loopback suffices
     initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
@@ -1826,6 +2033,8 @@ def main() -> None:
         nccl_s = time.perf_counter() - t0
         nccl_launches = cuda_layered.launches
         nccl_ar_ms = allreduce_ms(mesh)
+        nccl_ckpt = checkpoint_cycle(T, mesh, work / "p17_nccl.jsonl")
+        nccl_split = split_cases(T, mesh)
     finally:
         dist.destroy_process_group()
     print(f"  (a) NCCL, 1 rank ({mesh.backend}, {mesh.device}): {dict(zip(P17_FIELDS, got))} "
@@ -1835,28 +2044,23 @@ def main() -> None:
         fail("the NCCL one-rank waterfall's counters differ from the unsharded run's")
     if nccl_launches < 1:
         fail("the NCCL one-rank waterfall did not launch the layered kernel")
+    hold_ckpt("NCCL rank 0", nccl_ckpt)
+    hold_split("NCCL rank 0", nccl_split)
     # (b), (c): two ranks on the card over Gloo
     port = free_port()
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank", str(r),
-                               "--world", "2", "--port", str(port)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in (0, 1)]
-    ranks = []
     try:
-        for r, proc in enumerate(procs):
-            out, err = proc.communicate(timeout=300)
-            if proc.returncode != 0:
-                fail(f"phase 17 rank {r} exited {proc.returncode}:\n{err[-3000:]}")
-            line = [x for x in out.splitlines() if x.startswith("RANK ")]
-            if len(line) != 1:
-                fail(f"phase 17 rank {r} printed no result:\n{out[-2000:]}\n{err[-2000:]}")
-            ranks.append(json.loads(line[0][5:]))
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        outs = run_processes(
+            [[sys.executable, str(Path(__file__).resolve()), "--rank", str(r), "--world", "2",
+              "--port", str(port), "--work", str(work)] for r in (0, 1)], timeout=300)
+    except RuntimeError as e:
+        fail(f"a phase 17 rank failed: {e}")
+    ranks = []
+    for r, out in enumerate(outs):
+        line = [x for x in out.splitlines() if x.startswith("RANK ")]
+        if len(line) != 1:
+            fail(f"phase 17 rank {r} printed no result:\n{out[-2000:]}")
+        ranks.append(json.loads(line[0][5:]))
     gloo_s = time.perf_counter() - t0
     for r in ranks:
         print(f"  rank {r['rank']} of {r['world']} ({r['backend']}, {r['device']}): (b) ms "
@@ -1873,8 +2077,12 @@ def main() -> None:
                  "bits, success or iterations")
         if min(r["ms"]["launches"], r["bf"]["launches"], r["decoder"]["launches"]) < 1:
             fail(f"rank {r['rank']} launched no kernel in a phase 17 case")
+        hold_ckpt(f"Gloo rank {r['rank']}", r["ckpt"])
+        hold_split(f"Gloo rank {r['rank']}", r["split"])
     print(f"  two Gloo ranks: counters == the unsharded run's, the sharded decode == the "
-          f"unsharded one; {gloo_s:.3f} s with the ranks' start; {smi}")
+          f"unsharded one, the checkpoint cycle and the split decodes held; {gloo_s:.3f} s "
+          f"with the ranks' start; {smi}")
+    work_dir.cleanup()
 
     def entry(name, replaces, also, launches, row, max_abs_err):
         kind = name.split("_")[0]

@@ -73,12 +73,14 @@ from ..ops.qc_minsum import (
     make_ms_decoder_qc_int,
 )
 from ..ops.sumproduct import make_sp_decoder
-from ..parallel.mesh import BatchMesh, all_reduce_sum, batch_sharding
+from ..parallel.mesh import BatchMesh, all_reduce_sum, batch_sharding, shard_decoder
 
 __all__ = [
     "ChannelStats", "TrialStep", "default_llr_scale", "make_trial_step",
     "make_two_stage_decoder", "noise_sigma", "quantize_llrs", "resolve_impl", "SP_IMPLS",
+    "shard_map_decoder",
 ]
+
 
 # the sum-product family: float32 true channel LLRs, no alpha
 SP_IMPLS = ("sp", "sp_layered", "cuda_sp")
@@ -164,6 +166,23 @@ def _make_decoder(code, dtype, maxiters, alpha, impl: str, device="cuda"):
     if impl == "cuda_qc":
         return make_ms_decoder_cuda_qc(code, maxiters, alpha, device=device)
     return make_ms_decoder_cuda_layered(code, maxiters, alpha, device=device)
+
+
+def shard_map_decoder(decoder, mesh: BatchMesh, result_type=MSResult):
+    """`parallel.mesh.shard_decoder` under the JAX package's name and
+    signature (labrador_ldpc_tpu/channel/awgn.py:191). The JAX shard_map
+    fails when the decoder's result is not `result_type`; so does this, with
+    a TypeError at the call."""
+    sharded = shard_decoder(decoder, mesh)
+
+    def decode(x):
+        res = sharded(x)
+        if type(res) is not result_type:
+            raise TypeError(f"the decoder returned a {type(res).__name__}, "
+                            f"not the result_type {result_type.__name__}")
+        return res
+
+    return decode
 
 
 def default_llr_scale(dtype: torch.dtype) -> float:

@@ -15,7 +15,8 @@ match the JAX package's statistically, not trial for trial.
 With a mesh (`parallel.mesh.BatchMesh`) the batch is split over the mesh's
 ranks and every batch's counters are summed over them (`awgn.TrialStep`), so
 every rank reads the same global counters and takes the same stopping
-decision at the same batch; only rank 0 writes `csv_out` and `verbose`.
+decision at the same batch; only rank 0 writes `csv_out`, `verbose` and the
+checkpoint (`_Checkpoint`).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 
 from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
-from ..parallel.mesh import BatchMesh
+from ..parallel.mesh import BatchMesh, broadcast_object
 from .awgn import make_trial_step, noise_sigma
 
 __all__ = ["SnrPoint", "waterfall", "DEFAULT_SNRS_TC512"]
@@ -83,35 +84,70 @@ class _Checkpoint:
     re-run). A config header line guards against resuming with other
     parameters, and its "rng" key (absent from the JAX package's
     checkpoints) against resuming onto another random stream.
+
+    With a mesh, rank 0 alone opens, reads, checks and appends the file (the
+    other ranks never touch it, so it need not be visible to them), and
+    sends every rank what it read, or the error that reading raised, by one
+    `broadcast_object`: a mismatch raises on every rank, and every rank
+    resumes at the same batch. The counters it writes are already global
+    (`awgn.TrialStep` sums them over the ranks), so a write needs no
+    collective. The world size is not in the config: every rank draws the
+    whole global batch and keeps its rows, so the counters do not depend on
+    the ranks, and a file written by one mesh resumes on any other. A write
+    that fails on rank 0 mid-sweep (a full disk, a lost mount) raises on
+    rank 0 alone; the other ranks then wait in the next batch's `all_reduce`
+    until the process group's timeout ends the job, and the lines written
+    before it resume as usual.
     """
 
-    def __init__(self, path, config: dict):
+    def __init__(self, path, config: dict, mesh: BatchMesh | None = None):
         self.path = Path(path)
-        self.points: dict[float, dict] = {}
-        self.batches = 0
-        if self.path.exists():
-            with self.path.open() as f:
-                for line in f:
-                    line = line.strip()
-                    if not line:
-                        continue
-                    rec = json.loads(line)
-                    if rec.get("kind") == "config":
-                        mismatched = {
-                            k: (v, rec.get(k)) for k, v in config.items() if rec.get(k) != v
-                        }
-                        if mismatched:
-                            raise ValueError(
-                                f"checkpoint {self.path} was written with different "
-                                f"parameters: {mismatched}"
-                            )
-                    elif rec.get("kind") == "point":
-                        self.points[float(rec["snr_db"])] = rec
-                        self.batches = max(self.batches, int(rec["batches"]))
-            self._f = self.path.open("a")
-        else:
+        self._f = None
+        state = None
+        if mesh is None or mesh.rank == 0:
+            # a failure to read is sent like a result and raised on every rank
+            # after the broadcast: raised on rank 0 alone, it would leave the
+            # other ranks waiting in their next collective
+            try:
+                state = self._open(config)
+            except Exception as e:
+                state = e
+        if mesh is not None:
+            state = broadcast_object(mesh, state)
+        if isinstance(state, Exception):
+            raise state
+        self.points, self.batches = state
+
+    def _open(self, config: dict) -> tuple[dict[float, dict], int]:
+        """Read and check an existing file, or start one with the config
+        line; leave it open for appending. Returns (point records by snr,
+        batches drained)."""
+        points: dict[float, dict] = {}
+        batches = 0
+        if not self.path.exists():
             self._f = self.path.open("w")
             self._write({"kind": "config", **config})
+            return points, batches
+        with self.path.open() as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                rec = json.loads(line)
+                if rec.get("kind") == "config":
+                    mismatched = {
+                        k: (v, rec.get(k)) for k, v in config.items() if rec.get(k) != v
+                    }
+                    if mismatched:
+                        raise ValueError(
+                            f"checkpoint {self.path} was written with different "
+                            f"parameters: {mismatched}"
+                        )
+                elif rec.get("kind") == "point":
+                    points[float(rec["snr_db"])] = rec
+                    batches = max(batches, int(rec["batches"]))
+        self._f = self.path.open("a")
+        return points, batches
 
     def _write(self, rec: dict):
         self._f.write(json.dumps(rec) + "\n")
@@ -126,10 +162,13 @@ class _Checkpoint:
         return pt, bool(rec.get("done"))
 
     def record(self, pt: SnrPoint, batches: int, done: bool):
-        self._write({"kind": "point", **asdict(pt), "batches": batches, "done": done})
+        """Append the point's counters (rank 0's file; a no-op on the others)."""
+        if self._f is not None:
+            self._write({"kind": "point", **asdict(pt), "batches": batches, "done": done})
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 def _batch_generator(seed: int, index: int, device: torch.device) -> torch.Generator:
@@ -219,21 +258,18 @@ def waterfall(
     With `mesh`, `batch` is the global batch, split over the mesh's ranks
     (it must divide by them), and the sweep runs on the mesh's device, which
     must be of `device`'s type; every rank returns the same points and only
-    rank 0 prints. A checkpoint with more than one rank is refused: every
-    rank would append to the same file (the JAX package passes it to every
-    process, labrador_ldpc_tpu/parallel/launch.py:79-86).
+    rank 0 prints. Every rank passes the same `checkpoint` path, and rank 0
+    alone reads and writes it (the JAX package's launcher has every process
+    append to it, labrador_ldpc_tpu/parallel/launch.py:79-86); a file written
+    on any number of ranks resumes on any other number.
     """
     code = get_code(code)
     dev = resolve_device(device)
     k = code.k
     if seed < 0:
         raise ValueError(f"seed must be >= 0, got {seed}")
-    if mesh is not None:
-        if checkpoint is not None and mesh.world_size > 1:
-            raise ValueError(f"a checkpoint takes one rank; this mesh has {mesh.world_size}, "
-                             "and every rank would append to the same file")
-        if mesh.rank != 0:
-            csv_out, verbose = None, False
+    if mesh is not None and mesh.rank != 0:
+        csv_out, verbose = None, False
     # the checkpoint config records the resolved impl: a checkpoint written
     # with the kernel must not resume onto another decoder
     step = _make_step(code, batch, maxiters, noise_model, dtype_name, alpha, impl, llr_scale,
@@ -259,6 +295,7 @@ def waterfall(
                 "decoder": decoder,
                 "rng": f"torch-{dev.type}",
             },
+            mesh,
         )
         next_batch = ckpt.batches
     drained = next_batch

@@ -26,19 +26,30 @@ LOCAL_RANK). On the CPU, two ranks over Gloo:
         --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 1 \\
         --code TC128 --snrs 2.0,4.0 --batch 32 --max-bits 4096
 
-Only rank 0 prints the CSV rows. Nothing here runs at import.
+Only rank 0 prints the CSV rows. With `distributed_waterfall(...,
+checkpoint=path)` every rank names the same file and rank 0 alone reads and
+writes it (`channel.waterfall`). Nothing here runs at import.
+
+`--impl` defaults to "auto" (the layered CUDA kernel on a card, the plain
+layered decoder on the CPU), where the JAX launcher defaults to "qc"
+(labrador_ldpc_tpu/parallel/launch.py:104): on a card the port's "qc" is
+the plain PyTorch flooding decoder, not a kernel. So the same command line
+runs the layered schedule here and the flooding one there, and their curves
+differ; pass `--impl cuda_qc` for the flooding schedule on the card.
 """
 
 from __future__ import annotations
 
 import argparse
+import socket
+import subprocess
 import sys
 
 import torch.distributed as dist
 
 from ..device import resolve_device
 
-__all__ = ["initialize", "distributed_waterfall", "main"]
+__all__ = ["initialize", "distributed_waterfall", "free_port", "run_processes", "main"]
 
 
 def initialize(
@@ -84,6 +95,38 @@ def distributed_waterfall(csv_out=None, verbose: bool = False, device="cuda", **
 
     mesh = make_batch_mesh(device=device)
     return waterfall(mesh=mesh, csv_out=csv_out, verbose=verbose, device=mesh.device, **kwargs)
+
+
+def free_port() -> int:
+    """A TCP port free on 127.0.0.1 now, for a process group's store."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_processes(argvs, timeout: float, **popen_kwargs) -> list[str]:
+    """Start one process for each argument list, all at once (the ranks of
+    one group must run together), wait for each in turn and return their
+    standard outputs. Raises RuntimeError, with the end of its standard
+    error, for the first that exits non-zero; kills whichever still run when
+    it returns or raises (subprocess.TimeoutExpired past `timeout` seconds
+    for one process)."""
+    procs = [subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              **popen_kwargs) for argv in argvs]
+    outs = []
+    try:
+        for argv, proc in zip(argvs, procs):
+            out, err = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{' '.join(map(str, argv))[:200]} exited "
+                                   f"{proc.returncode}:\n{err[-3000:]}")
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
 
 
 def main(argv=None) -> int:

@@ -30,7 +30,10 @@ __all__ = [
     "BatchMesh",
     "make_batch_mesh",
     "batch_sharding",
+    "broadcast_object",
+    "shard_decoder",
     "make_sharded_decoder",
+    "make_sharded_bf_decoder",
     "make_sharded_trial_step",
 ]
 
@@ -101,6 +104,44 @@ def all_gather_rows(mesh: BatchMesh, t: torch.Tensor) -> torch.Tensor:
     return out.to(t.device)
 
 
+def broadcast_object(mesh: BatchMesh, obj):
+    """Rank 0's `obj` on every rank (one `broadcast_object_list`; pickled, so
+    only for objects this program made); `obj` itself with one rank and no
+    process group. Under NCCL the pickled bytes travel on the rank's card,
+    which `make_batch_mesh` made current; under Gloo on the host."""
+    if mesh.backend is None:
+        return obj
+    box = [obj]
+    src = 0 if mesh.group is None else dist.get_global_rank(mesh.group, 0)
+    dist.broadcast_object_list(box, src=src, group=mesh.group)
+    return box[0]
+
+
+def shard_decoder(decoder, mesh: BatchMesh):
+    """Split a batched decoder over the mesh's ranks.
+
+    Counterpart of the JAX `channel.awgn.shard_map_decoder`, which needs a
+    `result_type` because shard_map fixes its outputs before it traces; here
+    the result is in hand, and keeps its type. `decoder` is any fn(x: (B, n))
+    -> a (success, iterations, bits) NamedTuple, an `MSResult` or an
+    `ops.bitflip.BFResult`. Returns fn(x: the GLOBAL (B, n) input) -> the
+    same type for the whole batch, on every rank: each rank decodes its rows
+    (`batch_sharding`) on its device, and the three fields are gathered in
+    rank order (success as uint8). B must divide by the ranks.
+    """
+
+    def decode(x):
+        x = torch.as_tensor(x, device=mesh.device)
+        res = decoder(x[batch_sharding(mesh, x.shape[0])])
+        return res._replace(
+            success=all_gather_rows(mesh, res.success.to(torch.uint8)).bool(),
+            iterations=all_gather_rows(mesh, res.iterations),
+            bits=all_gather_rows(mesh, res.bits),
+        )
+
+    return decode
+
+
 def make_sharded_decoder(
     code: LDPCCode | str,
     mesh: BatchMesh,
@@ -109,32 +150,37 @@ def make_sharded_decoder(
     alpha: float | None = None,
     impl: str = "auto",
 ):
-    """Batched min-sum decoder with the batch split over the mesh's ranks.
+    """Batched min-sum or sum-product decoder with the batch split over the
+    mesh's ranks: `shard_decoder` over `channel.awgn`'s decoder of `impl`.
 
     Returns fn(llrs: the GLOBAL (B, n) LLRs) -> MSResult of the whole batch,
-    on every rank: each rank decodes its rows (`batch_sharding`) on its
-    device and the bits, success flags (gathered as uint8) and iteration
-    counts are gathered from all ranks. B must divide by the ranks. `impl`
-    is resolved for the mesh's device before the decoder is built ("auto" is
-    the layered CUDA kernel on a card), as `channel.awgn.resolve_impl`.
+    on every rank. `impl` is resolved for the mesh's device before the
+    decoder is built ("auto" is the layered CUDA kernel on a card), as
+    `channel.awgn.resolve_impl`.
     """
     from ..channel.awgn import _make_decoder, resolve_impl
-    from ..ops.minsum import MSResult
 
     code = get_code(code)
     impl = resolve_impl(code, dtype, impl, mesh.device)
-    decoder = _make_decoder(code, dtype, maxiters, alpha, impl, mesh.device)
+    return shard_decoder(_make_decoder(code, dtype, maxiters, alpha, impl, mesh.device), mesh)
 
-    def decode(llrs) -> MSResult:
-        llrs = torch.as_tensor(llrs, device=mesh.device)
-        res = decoder(llrs[batch_sharding(mesh, llrs.shape[0])])
-        return MSResult(
-            success=all_gather_rows(mesh, res.success.to(torch.uint8)).bool(),
-            iterations=all_gather_rows(mesh, res.iterations),
-            bits=all_gather_rows(mesh, res.bits),
-        )
 
-    return decode
+def make_sharded_bf_decoder(
+    code: LDPCCode | str,
+    mesh: BatchMesh,
+    maxiters: int = 20,
+    impl: str = "auto",
+):
+    """Batched bit-flip decoder with the batch split over the mesh's ranks.
+
+    Returns fn(hard_bits: the GLOBAL (B, n) 0/1 bits) -> BFResult of the
+    whole batch, on every rank. `impl` as `channel.hard.resolve_bf_impl`:
+    "auto" is the CUDA kernel ("cuda", `ops/cuda_bf.py`) on a card and the
+    plain QC decoder on the CPU.
+    """
+    from ..channel.hard import _make_bf_decoder
+
+    return shard_decoder(_make_bf_decoder(get_code(code), maxiters, impl, mesh.device), mesh)
 
 
 def make_sharded_trial_step(

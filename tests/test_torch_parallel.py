@@ -15,8 +15,6 @@ tests/test_torch_int.py). Tolerance: exact everywhere.
 
 import json
 import os
-import socket
-import subprocess
 import sys
 import textwrap
 from pathlib import Path
@@ -35,6 +33,7 @@ from labrador_ldpc_tpu_torch.channel.hard import make_bf_trial_step, make_ms_har
 from labrador_ldpc_tpu_torch.channel.waterfall import _batch_generator, waterfall
 from labrador_ldpc_tpu_torch.entry import entry
 from labrador_ldpc_tpu_torch.parallel import make_batch_mesh, make_sharded_trial_step
+from labrador_ldpc_tpu_torch.parallel.launch import free_port, run_processes
 
 REPO = Path(__file__).resolve().parent.parent
 TRIALS = 64  # the global batch: 32 rows a rank
@@ -45,7 +44,8 @@ STEP_CASES = [
     (code, "ms", dtype, impl, iters, float(10.0 ** -0.12))
     for code, iters in (("TC128", 20), ("TM1280", 10))
     for impl, dtype in (("layered", "float32"), ("qc_i8", "int8"), ("qc", "int16"),
-                        ("ref", "float32"), ("cuda_layered", "float32"))
+                        ("ref", "float32"), ("cuda_layered", "float32"),
+                        ("sp_layered", "float32"), ("cuda_qc", "bfloat16"))
 ] + [
     ("TC128", "bf", "float32", "auto", 20, 0.03),
     ("TM1280", "bf", "float32", "auto", 10, 0.01),
@@ -88,16 +88,11 @@ RANK_PROGRAM = textwrap.dedent("""
     pts = waterfall("TC128", [0.0, 2.0], batch=32, maxiters=10, max_bits=4096, seed=3,
                     device="cpu", mesh=mesh)
     out["waterfall"] = [p.csv() for p in pts]
-    for key, fn in (
-        ("uneven", lambda: make_trial_step("TC128", 63, 10, device="cpu", mesh=mesh)),
-        ("checkpoint", lambda: waterfall("TC128", [2.0], batch=32, max_bits=1, device="cpu",
-                                         checkpoint=f"{work}/ck{rank}.jsonl", mesh=mesh)),
-    ):
-        try:
-            fn()
-            out[key] = None
-        except ValueError as e:
-            out[key] = str(e)
+    try:
+        make_trial_step("TC128", 63, 10, device="cpu", mesh=mesh)
+        out["uneven"] = None
+    except ValueError as e:
+        out["uneven"] = str(e)
     json.dump(out, open(f"{work}/rank{rank}.json", "w"))
     torch.distributed.destroy_process_group()
 """)
@@ -110,12 +105,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _decoder_llrs(code_name, dtype, std):
@@ -139,29 +128,16 @@ def two_ranks(tmp_path_factory):
     (work / "spec.json").write_text(json.dumps(spec))
     np.savez(work / "llrs.npz", *[_decoder_llrs(c, d, s) for c, d, _, _, s in DECODER_CASES])
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    port, cli_port = _free_port(), _free_port()
+    port, cli_port = free_port(), free_port()
     cli = ["--device", "cpu", "--coordinator", f"127.0.0.1:{cli_port}", "--num-processes", "2",
            "--code", "TC128", "--snrs", SWEEP["snrs"], "--batch", str(SWEEP["batch"]),
            "--maxiters", str(SWEEP["maxiters"]), "--max-bits", str(SWEEP["max_bits"]),
            "--seed", str(SWEEP["seed"])]
-    procs = [subprocess.Popen([sys.executable, "-c", RANK_PROGRAM, str(r), str(port), str(work)],
-                              cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for r in (0, 1)]
-    procs += [subprocess.Popen([sys.executable, "-m", "labrador_ldpc_tpu_torch.parallel.launch",
-                                *cli, "--process-id", str(r)], cwd=REPO, env=env,
-                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-              for r in (0, 1)]
-    outs = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=240)
-            assert p.returncode == 0, f"rank process failed:\n{err[-3000:]}"
-            outs.append(out)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    outs = run_processes(
+        [[sys.executable, "-c", RANK_PROGRAM, str(r), str(port), str(work)] for r in (0, 1)]
+        + [[sys.executable, "-m", "labrador_ldpc_tpu_torch.parallel.launch", *cli,
+            "--process-id", str(r)] for r in (0, 1)],
+        timeout=240, cwd=REPO, env=env)
     ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in (0, 1)]
     decoded = [np.load(work / f"dec{j}.npz") for j in range(len(DECODER_CASES))]
     return ranks, decoded, outs[2:]
@@ -230,11 +206,11 @@ def test_launch_cli_two_processes_match_one(two_ranks):
     assert ranks[0]["waterfall"] == ranks[1]["waterfall"] == want
 
 
-@pytest.mark.parametrize("key,match", [("uneven", "does not divide"),
-                                       ("checkpoint", "a checkpoint takes one rank")])
+@pytest.mark.parametrize("key,match", [("uneven", "does not divide")])
 def test_two_ranks_refuse(two_ranks, key, match):
-    """A global batch that does not divide by the ranks, and a checkpoint
-    with more than one rank, raise ValueError on every rank."""
+    """A global batch that does not divide by the ranks raises ValueError on
+    every rank (a checkpoint on two ranks works:
+    tests/test_torch_mesh_resume.py)."""
     for r in two_ranks[0]:
         assert r[key] is not None and match in r[key], r[key]
 
