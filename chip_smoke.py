@@ -148,7 +148,18 @@ batch.
      (TM8192 BSC 0.006, 8192 frames, make_sharded_bf_decoder) and (g) the
      int8 layered and bf16 flooding forms on phase 5's first batch, each
      split over the ranks: the sha256 equal to the unsharded decode's, and
-     each form launched on each rank.
+     each form launched on each rank;
+ 18. the measurement entry points, with the launch counters reset before and
+     after (their launches are not in the kernels line): (a) `bench.measure`
+     (TM8192, B=16384, 3 flips, maxiters 50, cuda_layered f32, trains of up
+     to 32 decodes), its JSON line and its fit (R^2, points, residuals);
+     (b) `bench_suite --codes TC128,TM8192 --impls
+     cuda_layered:float32,cuda_qc:int8 --pipeline 8 --reps 1 --strict`,
+     which must exit 0 with every kernel row held to its plain version and
+     recorded; (c) `profile_decode` of the serving decode (cuda_layered f32,
+     B=16384, 3 decodes): the top ten device operations, the device busy
+     share and the longest idle gaps, or the line saying that torch.profiler
+     saw no device time.
 Then one JSON line `{"kernels": [...]}`; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -506,14 +517,11 @@ def result_digest(res) -> str:
 
 def serving_llrs(T, dev):
     """Phase 5's first TM8192 serving batch (B=16384, 3 flips) as LLRs."""
-    import numpy as np
     import torch
 
-    code = T.get_code("TM8192")
-    data = np.random.default_rng(0).integers(0, 256, (16384, code.k // 8), dtype=np.uint8)
-    cw = T.encode(code, torch.from_numpy(data).to(dev), dev)
-    cw[:, 0] ^= FLIPS
-    return T.hard_to_llrs(cw, torch.float32, dev)
+    from labrador_ldpc_tpu_torch.serve import flipped_codewords
+
+    return T.hard_to_llrs(flipped_codewords("TM8192", 16384, dev)[1], torch.float32, dev)
 
 
 def allreduce_ms(mesh, reps: int = 20) -> float:
@@ -2083,6 +2091,59 @@ def main() -> None:
           f"unsharded one, the checkpoint cycle and the split decodes held; {gloo_s:.3f} s "
           f"with the ranks' start; {smi}")
     work_dir.cleanup()
+
+    # ---- 18. the measurement entry points ---------------------------------------------
+    phase("18 measurement entry points: bench (B=16384), bench_suite (--strict), "
+          "profile_decode (cuda_layered f32, B=16384)")
+    from labrador_ldpc_tpu_torch import bench, bench_suite, profile_decode
+
+    # the entry points' launches are their own: the kernels line keeps the
+    # counts of the runs above, and the counters start and end phase 18 at 0
+    reset_launches()
+    t18 = time.perf_counter()
+    t0 = time.perf_counter()
+    headline = bench.measure(device="cuda")
+    diag = headline.diagnostics()
+    print(f"  (a) bench: {json.dumps(headline.line)}")
+    print(f"      fit: R^2 {diag['r_squared']}, points (decodes, s) {diag['fit_points']}, "
+          f"residuals {diag['residuals_s']} s, {headline.fit.slope * 1e3:.4f} ms a decode, "
+          f"amortized {diag['amortized_rate_cw_s']} cw/s; {time.perf_counter() - t0:.2f} s; {smi}")
+    if not headline.fit.slope > 0 or cuda_layered.form_launches["f32"] < 1:
+        fail("bench: no positive slope, or the layered f32 kernel was not launched")
+    t0 = time.perf_counter()
+    suite_argv = ["--codes", "TC128,TM8192", "--impls", "cuda_layered:float32,cuda_qc:int8",
+                  "--pipeline", "8", "--reps", "1", "--strict"]
+    with tempfile.TemporaryDirectory() as tmp:
+        suite_out = Path(tmp) / "bench_suite.jsonl"
+        rc = bench_suite.main([*suite_argv, "--out", str(suite_out)])
+        suite_rows = [json.loads(line) for line in suite_out.read_text().splitlines()]
+    print(f"  (b) bench_suite {' '.join(suite_argv)}: exit {rc}, {len(suite_rows)} rows in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if rc != 0:
+        fail(f"bench_suite --strict exited {rc}")
+    suite_have = {(r["bench"], r["code"]) for r in suite_rows}
+    suite_want = {(b, c) for c in ("TC128", "TM8192") for b in (
+        "encode", "decode_bf[cuda]", "bf_iter[cuda]", "decode_ms[cuda_layered,float32]",
+        "decode_ms[cuda_qc,int8]", "ms_iter[cuda_layered,float32]")} | {("decode_sp[cuda]",
+                                                                           "TM8192")}
+    if suite_want - suite_have:
+        fail(f"bench_suite recorded no row for {sorted(suite_want - suite_have)}")
+    t0 = time.perf_counter()
+    try:
+        busy = profile_decode.profile_decode("TM8192", "cuda_layered", torch.float32, 16384,
+                                             reps=3, top=10)
+        print(profile_decode.format_profile(
+            busy, f"(c) profile_decode TM8192 cuda_layered float32 B=16384 maxiters=50, 3 "
+                  f"decodes each waited for, on {smi}"))
+    except profile_decode.NoDeviceActivity as e:
+        print(f"  (c) profile_decode: torch.profiler saw no device time on this machine: {e}")
+    print(f"  (c) {time.perf_counter() - t0:.2f} s")
+    launched = {name: kernel_launches(name) for name in (
+        "layered_minsum_f32", "layered_minsum_i8", "flooding_minsum_i8", "bitflip_u8",
+        "sumproduct_f32")}
+    print(f"  phase 18: {time.perf_counter() - t18:.2f} s; its own launches {launched} (not in "
+          "the kernels line)")
+    reset_launches()
 
     def entry(name, replaces, also, launches, row, max_abs_err):
         kind = name.split("_")[0]

@@ -14,7 +14,10 @@ and BEC trial steps and the BER/FER waterfall (also `python -m
 labrador_ldpc_tpu_torch waterfall`), the waterfall and decoders split over
 the ranks of a process group (`parallel/`), the kernels' launch table and
 memory sizes (`ops/routing.py`, `sizes.py`, `python -m
-labrador_ldpc_tpu_torch sizes`) and the serving loop (`serve.py`).
+labrador_ldpc_tpu_torch sizes`), the serving loop (`serve.py`), the
+measurement entry points (`bench.py`, `bench_suite.py`, `profile_decode.py`,
+each on the card only) and the bindings of the native scalar codec
+(`capi.py`).
 
 Entry points run on CUDA unless the caller passes device="cpu"::
 

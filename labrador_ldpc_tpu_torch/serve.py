@@ -32,12 +32,25 @@ from .ops.encoder import encode
 from .ops.minsum import decode_ms
 from .utils.timing import pipelined_slope
 
-__all__ = ["ServeReport", "serve", "FLIPS"]
+__all__ = ["ServeReport", "serve", "flipped_codewords", "FLIPS"]
 
 FLIPS = (1 << 7) | (1 << 5) | (1 << 3)  # the bits flipped in byte 0 of every frame
 DEPTH = 4  # batches in flight: bounds the device queue and the pinned host buffers
 MAXITERS = 50
 SLOPE_REPS = 3
+
+
+def flipped_codewords(code: LDPCCode | str, batch: int, device="cuda"):
+    """The `bench.py` scenario's frames: (data bytes (batch, k/8) drawn from
+    `np.random.default_rng(0)`, on the CPU; their codewords (batch, n/8) on
+    `device` with the bits of FLIPS flipped in byte 0)."""
+    code = get_code(code)
+    dev = resolve_device(device)
+    sent = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, (batch, code.k // 8), dtype=np.uint8))
+    cw = encode(code, sent.to(dev), dev)
+    cw[:, 0] ^= FLIPS
+    return sent, cw
 
 
 @dataclass(frozen=True)
@@ -66,10 +79,7 @@ def serve(n_batches: int = 32, code: LDPCCode | str = "TM8192", batch: int = 163
     code = get_code(code)
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
-    rng = np.random.default_rng(0)
-    sent = torch.from_numpy(rng.integers(0, 256, (batch, code.k // 8), dtype=np.uint8))
-    cw = encode(code, sent.to(dev), dev)
-    cw[:, 0] ^= FLIPS
+    sent, cw = flipped_codewords(code, batch, dev)
     llrs = hard_to_llrs(cw, torch.float32, dev)
 
     def dispatch(x):

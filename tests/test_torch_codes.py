@@ -125,7 +125,8 @@ def test_port_imports_no_jax():
         "new = [f'labrador_ldpc_tpu_torch.{m}'\n"
         "       for m in ('ops.cuda_qc', 'ops.qc_minsum', 'ops.minsum', 'ops.sumproduct',\n"
         "                 'ops.cuda_sp', 'ops.routing', 'parallel.mesh', 'parallel.launch',\n"
-        "                 'sizes', 'utils.timing', 'serve', 'entry')]\n"
+        "                 'sizes', 'utils.timing', 'serve', 'entry', 'capi', 'bench',\n"
+        "                 'bench_suite', 'profile_decode')]\n"
         "missing = [m for m in new if m not in sys.modules]\n"
         "print(n, bad, missing)\n"
         "sys.exit(1 if bad or missing or n < 32 else 0)\n"
