@@ -159,7 +159,15 @@ batch.
      recorded; (c) `profile_decode` of the serving decode (cuda_layered f32,
      B=16384, 3 decodes): the top ten device operations, the device busy
      share and the longest idle gaps, or the line saying that torch.profiler
-     saw no device time.
+     saw no device time;
+ 19. the quality tools (labrador_ldpc_tpu_torch/tools/), into a temporary
+     directory, with the launch counters reset before and after (their
+     launches are printed on a line of their own): the TM8192 1.1 dB and
+     TC512 1.0 dB (perftest) f32 anchors and the TM8192 sum-product anchor at
+     their full budgets (gen_ber_anchors), one cross_db walk (TC128 ms) and
+     one cross_p walk (TC128 bf); tools.compare holds every row and the two
+     crossings to the TPU's tables (benchmarks/results) by its fixed
+     statistic, and any failed pair fails the run.
 Then one JSON line `{"kernels": [...]}`; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -178,6 +186,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -607,6 +616,59 @@ def reset_launches() -> None:
     for mod in (cuda_layered, cuda_qc):
         for form in mod.form_launches:
             mod.form_launches[form] = 0
+
+
+def quality_tools(smi: str) -> None:
+    """Phase 19: the quality tools' reduced cases into a temporary directory,
+    every row and both crossings held to the TPU's tables by tools.compare;
+    the launch counters are set to 0 before and after."""
+    from labrador_ldpc_tpu_torch.tools import Run, TPU_RESULTS, compare, write_table
+    from labrador_ldpc_tpu_torch.tools import gen_ber_anchors, gen_bsc_thresholds, gen_gap_table
+
+    reset_launches()
+    t19 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        argv = ["(chip_smoke.py phase 19)"]
+        # (a) two f32 anchors and the sum-product anchor at their full budgets
+        run = Run(device="cuda")
+        gen_ber_anchors.anchors(run, tmp, argv, grid=[("TM8192", "ebn0", [1.1]),
+                                                      ("TC512", "perftest", [1.0])])
+        gen_ber_anchors.main_sp(run, tmp, argv)
+        # (b) one walk of each axis, TC128: ms over Eb/N0, bf over BSC p
+        crossings = []
+        walks = (
+            (gen_gap_table, "bf_ms_gap_table.csv", "ms_db", "bf_ms_gap_points.csv",
+             lambda log, run: gen_gap_table.cross_db(
+                 "TC128", "ms", 1e-3, log, fer_fn=partial(gen_gap_table.fer_at, run=run))),
+            (gen_bsc_thresholds, "bsc_thresholds.csv", "p_star_bf", "bsc_threshold_points.csv",
+             lambda log, run: gen_bsc_thresholds.cross_p("TC128", "bf", 1e-3, log, run)),
+        )
+        for module, table, col, points, walk in walks:
+            run = Run(device="cuda")
+            log = []
+            x = walk(log, run)
+            header = module.POINTS_HEADER.format(table=table)
+            write_table(tmp / points, header, log, run, module.__name__.rsplit(".", 1)[1], argv)
+            cols, rows = compare.read_table(TPU_RESULTS / table)
+            tpu = next(float(r[cols.index(col)]) for r in rows if r[0] == "TC128")
+            crossings.append(compare.crossing(table, "TC128", col, x, tpu))
+        pairs, files, _ = compare.compare_dirs(tmp, TPU_RESULTS)
+        pairs += crossings
+    for pair in pairs:
+        print(f"  {pair.line()}")
+    gated = [p for p in pairs if p.gated]
+    failed = [p for p in gated if not p.ok]
+    launched = {name: kernel_launches(name) for name in (
+        "layered_minsum_f32", "flooding_minsum_f32", "bitflip_u8", "sumproduct_f32")}
+    print(f"  phase 19: {len(files)} files, {len(gated)} gated pairs, {len(failed)} failed, "
+          f"{len(pairs) - len(gated)} ungated; {time.perf_counter() - t19:.2f} s on {smi}")
+    print(f"  phase 19: its own launches {launched} (not in the kernels line)")
+    if failed or not gated:
+        fail(f"phase 19: {len(failed)} of {len(gated)} gated pairs failed")
+    if not all(launched.values()):
+        fail(f"phase 19: a kernel of the tools' path was not launched: {launched}")
+    reset_launches()
 
 
 def split_cases(T, mesh) -> dict:
@@ -2144,6 +2206,11 @@ def main() -> None:
     print(f"  phase 18: {time.perf_counter() - t18:.2f} s; its own launches {launched} (not in "
           "the kernels line)")
     reset_launches()
+
+    # ---- 19. the quality tools ------------------------------------------------
+    phase("19 the quality tools: the generators' reduced cases, held to the TPU's tables by "
+          "tools.compare")
+    quality_tools(smi)
 
     def entry(name, replaces, also, launches, row, max_abs_err):
         kind = name.split("_")[0]

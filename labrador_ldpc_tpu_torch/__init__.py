@@ -16,8 +16,10 @@ the ranks of a process group (`parallel/`), the kernels' launch table and
 memory sizes (`ops/routing.py`, `sizes.py`, `python -m
 labrador_ldpc_tpu_torch sizes`), the serving loop (`serve.py`), the
 measurement entry points (`bench.py`, `bench_suite.py`, `profile_decode.py`,
-each on the card only) and the bindings of the native scalar codec
-(`capi.py`).
+each on the card only), the bindings of the native scalar codec
+(`capi.py`) and the quality tools (`tools/`: the anchor, curve, gap and
+BSC-threshold generators, and `tools.compare`, which holds their tables in
+`results/` to the TPU's).
 
 Entry points run on CUDA unless the caller passes device="cpu"::
 

@@ -126,7 +126,9 @@ def test_port_imports_no_jax():
         "       for m in ('ops.cuda_qc', 'ops.qc_minsum', 'ops.minsum', 'ops.sumproduct',\n"
         "                 'ops.cuda_sp', 'ops.routing', 'parallel.mesh', 'parallel.launch',\n"
         "                 'sizes', 'utils.timing', 'serve', 'entry', 'capi', 'bench',\n"
-        "                 'bench_suite', 'profile_decode')]\n"
+        "                 'bench_suite', 'profile_decode', 'tools.compare',\n"
+        "                 'tools.gen_ber_anchors', 'tools.gen_bf_curves',\n"
+        "                 'tools.gen_bsc_thresholds', 'tools.gen_gap_table', 'tools.gen_sp_gap')]\n"
         "missing = [m for m in new if m not in sys.modules]\n"
         "print(n, bad, missing)\n"
         "sys.exit(1 if bad or missing or n < 32 else 0)\n"
