@@ -11,18 +11,23 @@ names and a `--device` flag (default cuda):
         --noise-model ebn0 --impl sp_layered
     python -m labrador_ldpc_tpu_torch waterfall --code TM8192 --snrs 1.1 \\
         --noise-model ebn0 --dtype bfloat16
+    python -m labrador_ldpc_tpu_torch waterfall --code TC512 --snrs 1.5 \\
+        --profile traces/
     python -m labrador_ldpc_tpu_torch info
     python -m labrador_ldpc_tpu_torch sizes
 
 `sizes` prints the CUDA decoders' launch shapes and device memory per code
 (`sizes.format_memory_table`) and the reference crate's RAM table; it is
-plain Python and needs no card. The CSV schema matches the reference
-perftest (`code,snr,trials,bits,errors,ber`, perftest/src/main.rs:62).
+plain Python and needs no card. `--profile DIR` writes the sweep's
+`torch.profiler` Chrome trace to `DIR/waterfall_<code>.json` (README,
+"Spans"). The CSV schema matches the reference perftest
+(`code,snr,trials,bits,errors,ber`, perftest/src/main.rs:62).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 SP_IMPLS = ("sp", "sp_layered", "cuda_sp")  # sum-product: float32 true LLRs, decoder ms
@@ -94,26 +99,56 @@ def _cmd_waterfall(args) -> int:
     else:
         snrs = [round(args.snr_start + args.snr_step * i, 10) for i in
                 range(int(round((args.snr_stop - args.snr_start) / args.snr_step)) + 1)]
-    waterfall(
-        args.code,
-        snrs,
-        batch=args.batch,
-        maxiters=args.maxiters,
-        max_bits=args.max_bits,
-        max_bit_errors=args.max_bit_errors,
-        noise_model=args.noise_model,
-        dtype_name=args.dtype,
-        alpha=args.alpha,
-        impl=args.impl,
-        llr_scale=args.llr_scale,
-        seed=args.seed,
-        csv_out=sys.stdout,
-        verbose=args.verbose,
-        checkpoint=args.checkpoint,
-        decoder=args.decoder,
-        device=args.device,
-    )
+    with _profiled(args.profile, f"waterfall_{args.code}", args.device):
+        waterfall(
+            args.code,
+            snrs,
+            batch=args.batch,
+            maxiters=args.maxiters,
+            max_bits=args.max_bits,
+            max_bit_errors=args.max_bit_errors,
+            noise_model=args.noise_model,
+            dtype_name=args.dtype,
+            alpha=args.alpha,
+            impl=args.impl,
+            llr_scale=args.llr_scale,
+            seed=args.seed,
+            csv_out=sys.stdout,
+            verbose=args.verbose,
+            checkpoint=args.checkpoint,
+            decoder=args.decoder,
+            device=args.device,
+        )
     return 0
+
+
+@contextlib.contextmanager
+def _profiled(out_dir: str | None, name: str, device):
+    """With `out_dir`, run the block under `torch.profiler` (host, and the
+    card's activity on a CUDA device) and write its Chrome trace to
+    `out_dir/<name>.json`: the port's spans (`utils.tracing`) over the
+    device's kernels and copies, on one clock. Without, just run it."""
+    if out_dir is None:
+        yield
+        return
+    from pathlib import Path
+
+    import torch
+
+    from .device import resolve_device
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    # shapes recorded: the spans' args (a batch's index, a point's snr) go
+    # into the trace with them
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        yield
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"{name}.json"
+    prof.export_chrome_trace(str(path))
+    print(f"trace: {path}", file=sys.stderr, flush=True)
 
 
 def _cmd_info(args) -> int:
@@ -183,6 +218,9 @@ def main(argv=None) -> int:
                         "an interrupted sweep from it")
     w.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     w.add_argument("--verbose", action="store_true")
+    w.add_argument("--profile", default=None, metavar="DIR",
+                   help="run the sweep under torch.profiler and write its Chrome trace "
+                        "(the port's ldpc.* spans over the card's kernels) to DIR")
     w.set_defaults(fn=_cmd_waterfall)
 
     i = sub.add_parser("info", help="print the code registry table")

@@ -74,6 +74,7 @@ from ..ops.qc_minsum import (
 )
 from ..ops.sumproduct import make_sp_decoder
 from ..parallel.mesh import BatchMesh, all_reduce_sum, batch_sharding, shard_decoder
+from ..utils.tracing import span
 
 __all__ = [
     "ChannelStats", "TrialStep", "default_llr_scale", "make_trial_step",
@@ -265,7 +266,9 @@ class TrialStep:
     channel's raw noise over the (B, n) codeword, a Bernoulli(param) mask
     (noise="bernoulli") or standard normal samples (noise="normal").
     `apply(data_bits, noise, param)` is the rest, with no randomness:
-    encode -> `channel(cw_bits, noise, param)` -> `decoder` -> counters.
+    encode -> `channel(cw_bits, noise, param)` -> `decoder` -> counters,
+    each stage a span (`utils.tracing`: `ldpc.encode`, `ldpc.channel`,
+    `ldpc.decode`, `ldpc.count`).
     With a `mesh`, `batch` is the global batch, `draw` makes all of it,
     `apply` takes all of it and decodes this rank's rows, and the counters
     are summed over the mesh's ranks.
@@ -294,15 +297,26 @@ class TrialStep:
         if self.mesh is not None:
             rows = batch_sharding(self.mesh, self.batch)
             data_bits, noise = data_bits[rows], noise[rows]
-        cw_bits = encode_bits(self.code, data_bits, self.device)
-        res = self.decoder(self.channel(cw_bits, noise, param))
-        stats = _count_stats(data_bits.shape[0], self.code.k, data_bits, res)
+        with span("ldpc.encode"):
+            cw_bits = encode_bits(self.code, data_bits, self.device)
+        with span("ldpc.channel"):
+            rx = self.channel(cw_bits, noise, param)
+        with span("ldpc.decode"):
+            res = self.decoder(rx)
+        with span("ldpc.count"):
+            stats = _count_stats(data_bits.shape[0], self.code.k, data_bits, res)
         if self.mesh is None:
             return stats
         return ChannelStats(*all_reduce_sum(self.mesh, torch.stack(stats)))
 
-    def __call__(self, gen: torch.Generator, param: float) -> ChannelStats:
-        return self.apply(*self.draw(gen, param), param)
+    def __call__(self, gen: torch.Generator, param: float, index: int | None = None
+                 ) -> ChannelStats:
+        """draw, then apply; traced as `ldpc.trial_step` (args batch: `index`,
+        where the caller gives the batch's index in its sweep)."""
+        with span("ldpc.trial_step", "batch", index):
+            with span("ldpc.draw"):
+                drawn = self.draw(gen, param)
+            return self.apply(*drawn, param)
 
 
 def _awgn_llrs(cw_bits: torch.Tensor, noise: torch.Tensor, sigma, dtype: torch.dtype,

@@ -33,6 +33,7 @@ import torch
 from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
 from ..parallel.mesh import BatchMesh, broadcast_object
+from ..utils.tracing import span, spanned
 from .awgn import make_trial_step, noise_sigma
 
 __all__ = ["SnrPoint", "waterfall", "DEFAULT_SNRS_TC512"]
@@ -202,6 +203,7 @@ def _make_step(code, batch, maxiters, noise_model, dtype_name, alpha, impl, llr_
     return make(code, batch, maxiters, noise_model, impl, dev, mesh)
 
 
+@spanned("ldpc.waterfall")
 def waterfall(
     code: LDPCCode | str,
     snrs_db: list[float],
@@ -262,6 +264,11 @@ def waterfall(
     alone reads and writes it (the JAX package's launcher has every process
     append to it, labrador_ldpc_tpu/parallel/launch.py:79-86); a file written
     on any number of ranks resumes on any other number.
+
+    Traced (`utils.tracing`): `ldpc.waterfall` around the call, and inside it
+    `ldpc.waterfall.setup`, one `ldpc.waterfall.point` a point, and in a
+    point one `ldpc.trial_step` a batch enqueued and one
+    `ldpc.waterfall.drain` a batch read back.
     """
     code = get_code(code)
     dev = resolve_device(device)
@@ -270,93 +277,97 @@ def waterfall(
         raise ValueError(f"seed must be >= 0, got {seed}")
     if mesh is not None and mesh.rank != 0:
         csv_out, verbose = None, False
-    # the checkpoint config records the resolved impl: a checkpoint written
-    # with the kernel must not resume onto another decoder
-    step = _make_step(code, batch, maxiters, noise_model, dtype_name, alpha, impl, llr_scale,
-                      decoder, dev, mesh)
-    dev = step.device
-    ckpt = None
-    next_batch = 0
-    if checkpoint is not None:
-        ckpt = _Checkpoint(
-            checkpoint,
-            {
-                "code": code.value,
-                "batch": batch,
-                "maxiters": maxiters,
-                "max_bits": max_bits,
-                "max_bit_errors": max_bit_errors,
-                "noise_model": noise_model,
-                "dtype_name": dtype_name,
-                "alpha": alpha,
-                "impl": step.impl,
-                "llr_scale": llr_scale,
-                "seed": seed,
-                "decoder": decoder,
-                "rng": f"torch-{dev.type}",
-            },
-            mesh,
-        )
-        next_batch = ckpt.batches
+    with span("ldpc.waterfall.setup"):
+        # the checkpoint config records the resolved impl: a checkpoint written
+        # with the kernel must not resume onto another decoder
+        step = _make_step(code, batch, maxiters, noise_model, dtype_name, alpha, impl, llr_scale,
+                          decoder, dev, mesh)
+        dev = step.device
+        ckpt = None
+        next_batch = 0
+        if checkpoint is not None:
+            ckpt = _Checkpoint(
+                checkpoint,
+                {
+                    "code": code.value,
+                    "batch": batch,
+                    "maxiters": maxiters,
+                    "max_bits": max_bits,
+                    "max_bit_errors": max_bit_errors,
+                    "noise_model": noise_model,
+                    "dtype_name": dtype_name,
+                    "alpha": alpha,
+                    "impl": step.impl,
+                    "llr_scale": llr_scale,
+                    "seed": seed,
+                    "decoder": decoder,
+                    "rng": f"torch-{dev.type}",
+                },
+                mesh,
+            )
+            next_batch = ckpt.batches
     drained = next_batch
     results = []
     # each step simulates exactly batch*k data bits, so the bits budget
     # translates to a step count ahead of time
     n_steps_max = max(1, -(-max_bits // (batch * k)))
     for snr in snrs_db:
-        param = snr if noise_model in ("bsc", "bec") else noise_sigma(snr, code, noise_model)
-        pt = SnrPoint(code=code.value, snr_db=snr)
-        launched = 0
-        elapsed0 = 0.0
-        if ckpt is not None:
-            restored, done = ckpt.lookup(snr)
-            if restored is not None:
-                pt = restored
-                if done:
-                    results.append(pt)
-                    if csv_out is not None:
-                        print(pt.csv(), file=csv_out, flush=True)
-                    continue
-                launched = pt.trials // batch  # each step counts exactly batch
-                elapsed0 = pt.elapsed_s
-        t0 = time.perf_counter()
-        inflight: list = []
-        while True:
-            while (
-                launched < n_steps_max
-                and len(inflight) < max(1, pipeline_depth)
-                and pt.bit_errors < max_bit_errors
-            ):
-                inflight.append(step(_batch_generator(seed, next_batch, dev), param))
-                next_batch += 1
-                launched += 1
-            if not inflight:
-                break
-            trials, bit_errors, frame_errors, failures, iters = \
-                torch.stack(list(inflight.pop(0))).tolist()
-            pt.trials += trials
-            pt.bits += trials * k
-            pt.bit_errors += bit_errors
-            pt.frame_errors += frame_errors
-            pt.decode_failures += failures
-            pt.iterations += iters
-            drained += 1
+        with span("ldpc.waterfall.point", "snr", snr):
+            param = snr if noise_model in ("bsc", "bec") else noise_sigma(snr, code, noise_model)
+            pt = SnrPoint(code=code.value, snr_db=snr)
+            launched = 0
+            elapsed0 = 0.0
             if ckpt is not None:
-                pt.elapsed_s = elapsed0 + time.perf_counter() - t0
-                ckpt.record(pt, drained, done=False)
-        pt.elapsed_s = elapsed0 + time.perf_counter() - t0
-        if ckpt is not None:
-            ckpt.record(pt, drained, done=True)
-        results.append(pt)
-        line = pt.csv()
-        if csv_out is not None:
-            print(line, file=csv_out, flush=True)
-        if verbose:
-            print(
-                f"{line}  fer={pt.fer:.3e} cw/s={pt.trials / max(pt.elapsed_s, 1e-9):,.0f}",
-                file=sys.stderr,
-                flush=True,
-            )
+                restored, done = ckpt.lookup(snr)
+                if restored is not None:
+                    pt = restored
+                    if done:
+                        results.append(pt)
+                        if csv_out is not None:
+                            print(pt.csv(), file=csv_out, flush=True)
+                        continue
+                    launched = pt.trials // batch  # each step counts exactly batch
+                    elapsed0 = pt.elapsed_s
+            t0 = time.perf_counter()
+            inflight: list = []
+            while True:
+                while (
+                    launched < n_steps_max
+                    and len(inflight) < max(1, pipeline_depth)
+                    and pt.bit_errors < max_bit_errors
+                ):
+                    inflight.append(step(_batch_generator(seed, next_batch, dev), param,
+                                         next_batch))
+                    next_batch += 1
+                    launched += 1
+                if not inflight:
+                    break
+                with span("ldpc.waterfall.drain"):
+                    trials, bit_errors, frame_errors, failures, iters = \
+                        torch.stack(list(inflight.pop(0))).tolist()
+                pt.trials += trials
+                pt.bits += trials * k
+                pt.bit_errors += bit_errors
+                pt.frame_errors += frame_errors
+                pt.decode_failures += failures
+                pt.iterations += iters
+                drained += 1
+                if ckpt is not None:
+                    pt.elapsed_s = elapsed0 + time.perf_counter() - t0
+                    ckpt.record(pt, drained, done=False)
+            pt.elapsed_s = elapsed0 + time.perf_counter() - t0
+            if ckpt is not None:
+                ckpt.record(pt, drained, done=True)
+            results.append(pt)
+            line = pt.csv()
+            if csv_out is not None:
+                print(line, file=csv_out, flush=True)
+            if verbose:
+                print(
+                    f"{line}  fer={pt.fer:.3e} cw/s={pt.trials / max(pt.elapsed_s, 1e-9):,.0f}",
+                    file=sys.stderr,
+                    flush=True,
+                )
     if ckpt is not None:
         ckpt.close()
     return results

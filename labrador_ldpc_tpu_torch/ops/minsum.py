@@ -27,6 +27,7 @@ import torch
 from ..codes.expand import decoder_tables
 from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
+from ..utils.tracing import span, spanned
 
 __all__ = ["decode_ms", "make_ms_decoder", "MSResult"]
 
@@ -226,6 +227,7 @@ def _cached_decoder(code: LDPCCode, dtype: torch.dtype, maxiters: int, alpha, im
     return _make_decoder(code, dtype, maxiters, alpha, impl, device)
 
 
+@spanned("ldpc.decode_ms")
 def decode_ms(
     code: LDPCCode | str,
     llrs,
@@ -242,11 +244,16 @@ def decode_ms(
     plain PyTorch layered decoder on the CPU, for float64 (which no kernel
     takes) to the plain layered decoder everywhere, and for int32 to the
     reference-order decoder (`channel.awgn.resolve_impl`).
+
+    Traced (`utils.tracing`): `ldpc.decode_ms` around the call, and inside it
+    `ldpc.copy_in` (the LLRs moved to `device`) and `ldpc.decode`.
     """
     code = get_code(code)
     dev = resolve_device(device)
-    llrs = torch.as_tensor(llrs, device=dev)
+    with span("ldpc.copy_in"):
+        llrs = torch.as_tensor(llrs, device=dev)
     from ..channel.awgn import resolve_impl
 
-    impl = resolve_impl(code, llrs.dtype, impl, dev)
-    return _cached_decoder(code, llrs.dtype, maxiters, alpha, impl, dev)(llrs)
+    with span("ldpc.decode"):
+        impl = resolve_impl(code, llrs.dtype, impl, dev)
+        return _cached_decoder(code, llrs.dtype, maxiters, alpha, impl, dev)(llrs)

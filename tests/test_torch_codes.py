@@ -125,8 +125,8 @@ def test_port_imports_no_jax():
         "new = [f'labrador_ldpc_tpu_torch.{m}'\n"
         "       for m in ('ops.cuda_qc', 'ops.qc_minsum', 'ops.minsum', 'ops.sumproduct',\n"
         "                 'ops.cuda_sp', 'ops.routing', 'parallel.mesh', 'parallel.launch',\n"
-        "                 'sizes', 'utils.timing', 'serve', 'entry', 'capi', 'bench',\n"
-        "                 'bench_suite', 'profile_decode', 'tools.compare',\n"
+        "                 'sizes', 'utils.timing', 'utils.tracing', 'serve', 'entry', 'capi',\n"
+        "                 'bench', 'bench_suite', 'profile_decode', 'tools.compare',\n"
         "                 'tools.gen_ber_anchors', 'tools.gen_bf_curves',\n"
         "                 'tools.gen_bsc_thresholds', 'tools.gen_gap_table', 'tools.gen_sp_gap')]\n"
         "missing = [m for m in new if m not in sys.modules]\n"
