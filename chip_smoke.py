@@ -28,10 +28,23 @@ batch.
      flooding instance per edge visit in sweep 1 and sweep 2; print ptxas's
      registers, stack frame and spills of the bit-flip kernel, fail on a
      spill or a stack frame, and count its SASS a parity window and a count
-     window (its window loops, one funnel shift a window);
+     window (its window loops, one funnel shift a window); print ptxas's
+     registers, stack frame and spills of both encoder instances (square
+     and deep tiles) and fail on a spill or a stack frame;
   2. print the card's name and power limit (nvidia-smi), its SMs and its
      largest SM clock;
-  3. encoder on the card against the golden CCSDS parity of all nine codes;
+  3. the encoder kernel (csrc/encoder.cu) on the card against the golden
+     CCSDS parity of all nine codes, and against its plain version
+     (encode_bits_plain, a float32 matmul) on all nine codes at B = 1, 33,
+     8192 and 32768 on random bytes (bit 0 is the data bit), one launch a
+     call; then its device time (torch.profiler, 20 launches) and a call's
+     time back to back (CUDA events) at TM8192, B=8192 and TC512, B=32768
+     beside its launch shape, its bound (the int8 tensor cores'
+     2 k (n - k) operations a codeword, or the bytes), its LOP3 floor (k/32
+     x (n - k) a codeword at 64 an SM a clock), the plain version's time and
+     the library yardstick's: torch._int_mm in int8 on the tensor cores, & 1,
+     the cast and the concatenation, held equal to the kernel and timed on
+     the device (the calls queued behind a spin kernel);
   4. the layered min-sum kernel (float32) against its plain PyTorch version
      on the card, all nine codes, noisy LLRs where some frames fail (B=256,
      maxiters=20), alpha=0.8 on all nine codes, maxiters 0/1 cases and
@@ -88,8 +101,9 @@ batch.
      each point's frame errors (bit errors against the stored layered f32
      curve) within a factor 2 of the stored curve or anchor
      (benchmarks/results); launch counts are reset just before and read
-     just after each point; then the stage times (CUDA events) of one
-     bit-flip, one float32 and one int8 min-sum batch;
+     just after each point, and each batch of the first four points must
+     take one launch of the encoder kernel; then the stage times (CUDA
+     events) of one bit-flip, one float32 and one int8 min-sum batch;
  10. the int8/int16/bf16 forms of the layered kernel against their plain
      version on the card, all nine codes: batches where some frames fail and
      some converge, with full-range random LLRs in each int batch, clean
@@ -168,7 +182,8 @@ batch.
      one cross_p walk (TC128 bf); tools.compare holds every row and the two
      crossings to the TPU's tables (benchmarks/results) by its fixed
      statistic, and any failed pair fails the run.
-Then one JSON line `{"kernels": [...]}`; the last line is
+Then one JSON line `{"kernels": [...]}` (eleven kernel forms, the encoder
+last); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -195,6 +210,12 @@ ROOT = Path(__file__).resolve().parent
 # operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# int8 operations/s of the tensor cores, dense: the encoder's bound counts
+# its 0/1 product there (portbench/roofline.py, `encoder`)
+INT8_TC_OPS_PER_S = 1979e12
+# the integer pipe's 32-bit logic operations an SM a clock (64 lanes): the
+# encoder kernel's LOP3 floor
+INT_LANES_PER_SM = 64
 # float32 operations per edge and iteration in csrc/layered_minsum.cu:
 # 12 in pass 1 (sub, 3 compares, select, abs, compare, 2 mins, select,
 # sign compare and xor counted as one), 7 in pass 2 (abs, compare, select,
@@ -599,19 +620,20 @@ def p17_decoders(T, mesh=None) -> dict:
 
 def kernel_launches(form: str) -> int:
     """Launches of a kernel form since its counter was last set to 0."""
-    from labrador_ldpc_tpu_torch.ops import cuda_bf, cuda_layered, cuda_qc, cuda_sp
+    from labrador_ldpc_tpu_torch.ops import cuda_bf, cuda_encoder, cuda_layered, cuda_qc, cuda_sp
 
-    if form in ("sumproduct_f32", "bitflip_u8"):
-        return (cuda_sp if form == "sumproduct_f32" else cuda_bf).launches
+    single = {"sumproduct_f32": cuda_sp, "bitflip_u8": cuda_bf, "encoder_u8": cuda_encoder}
+    if form in single:
+        return single[form].launches
     kind, _, dtype = form.split("_")
     return (cuda_layered if kind == "layered" else cuda_qc).form_launches[dtype]
 
 
 def reset_launches() -> None:
     """Set every kernel wrapper's launch counters to 0."""
-    from labrador_ldpc_tpu_torch.ops import cuda_bf, cuda_layered, cuda_qc, cuda_sp
+    from labrador_ldpc_tpu_torch.ops import cuda_bf, cuda_encoder, cuda_layered, cuda_qc, cuda_sp
 
-    for mod in (cuda_layered, cuda_qc, cuda_bf, cuda_sp):
+    for mod in (cuda_layered, cuda_qc, cuda_bf, cuda_sp, cuda_encoder):
         mod.launches = 0
     for mod in (cuda_layered, cuda_qc):
         for form in mod.form_launches:
@@ -836,8 +858,9 @@ def main() -> None:
     from labrador_ldpc_tpu_torch.channel.awgn import _count_stats, make_trial_step
     from labrador_ldpc_tpu_torch.channel.hard import make_bf_trial_step
     from labrador_ldpc_tpu_torch.codes.expand import qc_structure
-    from labrador_ldpc_tpu_torch.ops import _nvcc, cuda_bf, cuda_layered, cuda_qc, cuda_sp
+    from labrador_ldpc_tpu_torch.ops import _nvcc, cuda_bf, cuda_encoder, cuda_layered, cuda_qc, cuda_sp
     from labrador_ldpc_tpu_torch.ops.bitflip import bitflip_plain
+    from labrador_ldpc_tpu_torch.ops.encoder import _g_parity_f32, encode_bits_plain
     from labrador_ldpc_tpu_torch.ops.qc_minsum import flooding_minsum_plain, layered_minsum_plain
     from labrador_ldpc_tpu_torch.ops.sumproduct import layered_sp_plain
 
@@ -846,7 +869,8 @@ def main() -> None:
     # ---- 1. build -----------------------------------------------------------
     phase("1 build")
     t0 = time.perf_counter()
-    sources = (cuda_layered.SOURCE, cuda_qc.SOURCE, cuda_bf.SOURCE, cuda_sp.SOURCE)
+    sources = (cuda_layered.SOURCE, cuda_qc.SOURCE, cuda_bf.SOURCE, cuda_sp.SOURCE,
+               cuda_encoder.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         builds = list(pool.map(_nvcc.build, sources))
     print(f"built in {time.perf_counter() - t0:.2f} s")
@@ -906,6 +930,13 @@ def main() -> None:
                                                 "0 bytes spill loads") for line in bf_spills):
         fail(f"bitflip_kernel spills registers or has a stack frame: {bf_spills}")
     bf_regs = int(re.search(r"Used (\d+) registers", bf_log).group(1))
+    # the encoder's 8 x 8 accumulators a thread stay in registers in both
+    # instances (square and deep tiles): no spill and no stack frame
+    enc_spills = [line.strip() for line in built[cuda_encoder.SOURCE].log.splitlines()
+                  if "spill" in line]
+    if len(enc_spills) != 2 or any(not line.startswith(
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads") for line in enc_spills):
+        fail(f"encoder_kernel spills registers or has a stack frame: {enc_spills}")
     sp_sass = sass_counts(built[cuda_sp.SOURCE].path, "sumproduct_kernel", cuda_sp.INSTANCES[6], 6)
     flood_sass = flood_sass_counts(built[cuda_qc.SOURCE].path, cuda_qc.INSTANCES[6], 3, 6)
     bf_sass = bf_sass_counts(built[cuda_bf.SOURCE].path)
@@ -923,6 +954,7 @@ def main() -> None:
     cuda_qc._lib()
     cuda_bf._lib()
     cuda_sp._lib()
+    cuda_encoder._lib()
     forms = cuda_layered.FORMS  # dtype -> "f32" | "bf16" | "i8" | "i16"
 
     def minsum_launches() -> dict[str, int]:
@@ -948,10 +980,11 @@ def main() -> None:
     print(f"{n_sms} SMs, SM clock at most {sm_clock_mhz} MHz")
 
     # ---- 3. encoder -----------------------------------------------------------
-    phase("3 encoder vs golden CCSDS parity")
+    phase("3 encoder kernel vs golden CCSDS parity and its plain version")
     spec = importlib.util.spec_from_file_location("golden_vectors", ROOT / "tests" / "golden_vectors.py")
     golden = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(golden)
+    cuda_encoder.launches = 0
     for code in T.ALL_CODES:
         data = torch.arange(code.k // 8, dtype=torch.uint8, device=dev)[None]
         cw = T.encode(code, data)
@@ -959,7 +992,105 @@ def main() -> None:
             fail(f"{code}: encode did not run on the card")
         if cw[0, code.k // 8 :].cpu().numpy().tobytes() != golden.GOLDEN_PARITY[code.value]:
             fail(f"{code}: parity differs from the golden CCSDS vector")
-    print("golden parity: 9/9 codes")
+    print(f"golden parity: 9/9 codes, {cuda_encoder.launches} launches of encoder_u8")
+    if cuda_encoder.launches != len(T.ALL_CODES):
+        fail("encode did not launch the encoder kernel once a call")
+    g3 = torch.Generator(device=dev).manual_seed(3)
+    enc_max_err = 0
+    for code in T.ALL_CODES:
+        for B in (1, 33, 8192, 32768):
+            data = torch.randint(0, 256, (B, code.k), generator=g3, device=dev, dtype=torch.uint8)
+            before = cuda_encoder.launches
+            got = T.encode_bits(code, data)
+            if cuda_encoder.launches != before + 1:
+                fail(f"{code} B={B}: encode_bits made {cuda_encoder.launches - before} launches")
+            err = int((got.int() - encode_bits_plain(code, data).int()).abs().max().item())
+            enc_max_err = max(enc_max_err, err)
+            if err:
+                fail(f"{code} B={B}: the encoder kernel differs from its plain version")
+    print("kernel == plain version: 9 codes x B in (1, 33, 8192, 32768), random bytes, one "
+          "launch a call")
+
+    def event_ms(fn, reps):
+        fn()  # warm
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def kernel_device_ms(fn, kernel, reps=20):
+        """Mean device time of the kernel named `kernel` over `reps` calls of
+        fn, from torch.profiler: where the host takes longer a call than the
+        kernel, events around back-to-back calls time the host."""
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.zeros(1, device=dev).add_(1)  # the profiler's first launch sets it up
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        if len(spans) != reps:
+            fail(f"torch.profiler saw {len(spans)} launches of {kernel}, want {reps}")
+        return sum(spans) / reps / 1e3
+
+    def queued_device_ms(fn, reps=20):
+        """Mean device time a call of fn, all its kernels: the calls are
+        queued behind a 50 ms spin kernel, so CUDA events around them time
+        the device and not the host."""
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sm_clock_mhz * 50_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    enc_rows = {}
+    for name, B in (("TM8192", 8192), ("TC512", 32768)):
+        code = T.get_code(name)
+        k, nk = code.k, code.n - code.k
+        data = torch.randint(0, 2, (B, k), generator=g3, device=dev, dtype=torch.uint8)
+        cfg = cuda_encoder.launch_config(code, B, n_sms)
+        # the library route: the 0/1 product in int8 on the tensor cores
+        # (torch._int_mm, the generator column-major), then & 1, the cast and
+        # the concatenation; exact, since a sum is at most k
+        g8 = _g_parity_f32(code, dev).to(torch.int8).t().contiguous().t()
+
+        def library(data=data, g8=g8):
+            parity = torch._int_mm(data.view(torch.int8), g8)
+            return torch.cat([data, parity.bitwise_and_(1).to(torch.uint8)], dim=-1)
+
+        if not torch.equal(library(), T.encode_bits(code, data)):
+            fail(f"{name} B={B}: the int8 library route differs from the encoder kernel")
+        times = [event_ms(lambda: encode_bits_plain(code, data), 5),
+                 event_ms(lambda: T.encode_bits(code, data), 50),
+                 event_ms(lambda: T.encode_bits(code, data), 50),
+                 event_ms(lambda: encode_bits_plain(code, data), 5)]
+        t_ops, t_bytes = 2 * k * nk * B / INT8_TC_OPS_PER_S, B * (k + code.n) / HBM_BYTES_PER_S
+        row = {"ms": kernel_device_ms(lambda: T.encode_bits(code, data), "encoder_kernel"),
+               "call_ms": min(times[1:3]), "plain_ms": min(times[0], times[3]),
+               "library_ms": queued_device_ms(library), "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        floor_ms = 1e3 * B * nk * (k // 32) / (INT_LANES_PER_SM * n_sms * sm_clock_mhz * 1e6)
+        enc_rows[name] = row
+        print(f"  {name} B={B}: kernel {row['ms']:.4f} ms on the device (a call back to back "
+              f"{row['call_ms']:.4f} ms; grid {cfg['groups']} x "
+              f"{cfg['row_tiles']}, {cfg['bm']} x {cfg['bn']} tiles, {cfg['tiles']} a CTA, "
+              f"{cfg['smem_bytes']} B), bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+              f"{100 * row['bound_ms'] / row['ms']:.2f} %), LOP3 floor {floor_ms:.4f} ms at "
+              f"{sm_clock_mhz} MHz; plain {row['plain_ms']:.4f} ms, int8 torch._int_mm route "
+              f"(library) {row['library_ms']:.4f} ms on the device; {smi}")
 
     def noisy_llrs(code, batch, ebn0_db, seed):
         rng = np.random.default_rng(seed)
@@ -1571,12 +1702,16 @@ def main() -> None:
     torch.cuda.synchronize()
     cuda_bf.launches = 0
     cuda_layered.launches = 0
+    cuda_encoder.launches = 0
     points = []
     for decoder, model, x, mi, fname in WATERFALL_POINTS:
         (pt,) = T.waterfall(code, [x], batch=8192, maxiters=mi, max_bits=1,
                             max_bit_errors=10**9, noise_model=model, decoder=decoder, seed=0)
         points.append((decoder, model, mi, fname, pt))
-    slice_launches = dict(bitflip_u8=cuda_bf.launches, layered_minsum_f32=cuda_layered.launches)
+    slice_launches = dict(bitflip_u8=cuda_bf.launches, layered_minsum_f32=cuda_layered.launches,
+                          encoder_u8=cuda_encoder.launches)
+    # every batch the points drained was encoded by one launch of the kernel
+    slice_batches = sum(pt.trials for *_, pt in points) // 8192
     for decoder, model, mi, fname, pt in points:
         want = stored_frame_errors(fname, pt.snr_db, pt.trials)
         print(f"  {decoder:2s} {model:5s} maxiters={mi:3d}: {pt.csv()}  frame errors "
@@ -1597,9 +1732,12 @@ def main() -> None:
             if old.frame_errors != pt.frame_errors or old.bit_errors != pt.bit_errors:
                 fail(f"{decoder} {model}: the parent's kernel and this one differ on the same "
                      "draws")
-    print(f"  launches on the slice's path: {slice_launches}")
+    print(f"  launches on the slice's path: {slice_launches}; {slice_batches} batches drained")
     if min(slice_launches.values()) < 1:
-        fail("the waterfall did not launch both CUDA kernels")
+        fail("the waterfall did not launch all three CUDA kernels")
+    if slice_launches["encoder_u8"] != slice_batches:
+        fail(f"the waterfall encoded {slice_batches} batches with "
+             f"{slice_launches['encoder_u8']} launches of encoder_u8, want one a batch")
 
     # the quantized-LLR slice: int8/int16 through "auto" (the layered
     # kernel's int forms) and "cuda_qc" (the flooding kernel) at 1.1 dB
@@ -2215,15 +2353,17 @@ def main() -> None:
     def entry(name, replaces, also, launches, row, max_abs_err):
         kind = name.split("_")[0]
         source = {"layered": "layered_minsum.cu", "flooding": "flooding_minsum.cu",
-                  "bitflip": "bitflip.cu", "sumproduct": "sumproduct.cu"}[kind]
+                  "bitflip": "bitflip.cu", "sumproduct": "sumproduct.cu",
+                  "encoder": "encoder.cu"}[kind]
         out = {
             "name": name, "route": "cuda",
             "source": f"labrador_ldpc_tpu_torch/csrc/{source}",
-            "replaces": f"labrador_ldpc_tpu/ops/{replaces}",
+            # the JAX package left the encoder's product to XLA: no Pallas kernel
+            "replaces": None if replaces is None else f"labrador_ldpc_tpu/ops/{replaces}",
             "also_replaces": f"labrador_ldpc_tpu/ops/{also}",
             "launches": launches, "max_abs_err": max_abs_err,
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
         }
         if also is None:
             del out["also_replaces"]
@@ -2244,6 +2384,8 @@ def main() -> None:
     table.append(entry("bitflip_u8", "pallas_bf.py:53", "pallas_tc.py:741",
                        slice_launches["bitflip_u8"], bf_row, bf_max_err))
     table.append(entry("sumproduct_f32", "pallas_sp.py:48", None, sp_launches, sp_row, sp_max_err))
+    table.append(entry("encoder_u8", None, None, slice_launches["encoder_u8"], enc_rows["TM8192"],
+                       enc_max_err))
     print(f"  flooding f32 at 1.1 dB (B={B}, maxiters={maxiters}): kernel {flood_1p1['ms']:.4f} "
           f"ms, plain {flood_1p1['plain_ms']:.4f} ms, bound {flood_1p1['bound_ms']:.4f} ms "
           f"({flood_1p1['bound_by']})")
