@@ -151,7 +151,9 @@ batch.
      batch (B=16384): counters equal to the unsharded run's, the sharded
      decode equal to the unsharded one (a sha256 of bits, success and
      iterations); each rank reports its own kernel launches, and a rank that
-     launched nothing fails the run. On the NCCL rank and on both Gloo
+     launched nothing fails the run, and its `parallel.mesh.collective_calls`,
+     which must count one `all_reduce` a batch drained (of 5 int32 counters
+     on the NCCL rank). On the NCCL rank and on both Gloo
      ranks: (d) the 1.0 dB point for three batches, plain and checkpointed
      (rank 0 alone writes the file), then cut by rank 0 to the config and the
      first point line and resumed after a barrier: the counters of all three
@@ -800,6 +802,7 @@ def rank_main(args) -> None:
     import torch.distributed as dist
     from labrador_ldpc_tpu_torch.ops import cuda_bf, cuda_layered
     from labrador_ldpc_tpu_torch.parallel import make_batch_mesh, make_sharded_decoder
+    from labrador_ldpc_tpu_torch.parallel import mesh as pmesh
     from labrador_ldpc_tpu_torch.parallel.launch import initialize
 
     initialize(f"127.0.0.1:{args.port}", args.world, args.rank, backend="gloo", device="cuda")
@@ -811,11 +814,14 @@ def rank_main(args) -> None:
             T.waterfall(**kw, device="cuda", mesh=mesh)  # warm: the decoder, the kernel
             torch.cuda.synchronize()
             mod.launches = 0
+            pmesh.collective_calls["all_reduce"] = 0
             t0 = time.perf_counter()
             pt = T.waterfall(**kw, device="cuda", mesh=mesh)[0]
             torch.cuda.synchronize()
             out[key] = {"point": [getattr(pt, f) for f in P17_FIELDS],
-                        "launches": mod.launches, "s": time.perf_counter() - t0}
+                        "launches": mod.launches, "s": time.perf_counter() - t0,
+                        "all_reduce": pmesh.collective_calls["all_reduce"],
+                        "batches": pt.trials // kw["batch"]}
         llrs = serving_llrs(T, mesh.device)
         decode = make_sharded_decoder("TM8192", mesh, torch.float32, 50)
         decode(llrs[: 2 * mesh.world_size])  # warm
@@ -2176,6 +2182,7 @@ def main() -> None:
     import torch.distributed as dist
 
     from labrador_ldpc_tpu_torch.parallel import make_batch_mesh
+    from labrador_ldpc_tpu_torch.parallel import mesh as pmesh
     from labrador_ldpc_tpu_torch.parallel.launch import free_port, initialize, run_processes
 
     def fields(pt):
@@ -2235,11 +2242,13 @@ def main() -> None:
         T.waterfall(**P17_MS, device="cuda", mesh=mesh)  # warm: NCCL's communicator
         torch.cuda.synchronize()
         reset_launches()
+        pmesh.collective_calls["all_reduce"] = pmesh.collective_bytes["all_reduce"] = 0
         t0 = time.perf_counter()
         got = fields(T.waterfall(**P17_MS, device="cuda", mesh=mesh)[0])
         torch.cuda.synchronize()
         nccl_s = time.perf_counter() - t0
         nccl_launches = cuda_layered.launches
+        nccl_reduces = (pmesh.collective_calls["all_reduce"], pmesh.collective_bytes["all_reduce"])
         nccl_ar_ms = allreduce_ms(mesh)
         nccl_ckpt = checkpoint_cycle(T, mesh, work / "p17_nccl.jsonl")
         nccl_split = split_cases(T, mesh)
@@ -2247,9 +2256,13 @@ def main() -> None:
         dist.destroy_process_group()
     print(f"  (a) NCCL, 1 rank ({mesh.backend}, {mesh.device}): {dict(zip(P17_FIELDS, got))} "
           f"in {nccl_s:.3f} s; layered_minsum_f32 launches {nccl_launches}; all_reduce of the "
-          f"counters {nccl_ar_ms:.4f} ms")
+          f"counters {nccl_ar_ms:.4f} ms; mesh.collective_calls all_reduce {nccl_reduces[0]} "
+          f"({nccl_reduces[1]} bytes) for {got[0] // P17_MS['batch']} batches drained")
     if got != want_ms:
         fail("the NCCL one-rank waterfall's counters differ from the unsharded run's")
+    if nccl_reduces != (got[0] // P17_MS["batch"], got[0] // P17_MS["batch"] * 5 * 4):
+        fail(f"the NCCL one-rank waterfall counted {nccl_reduces} all_reduce calls and bytes, "
+             "not one of the five int32 counters a batch drained")
     if nccl_launches < 1:
         fail("the NCCL one-rank waterfall did not launch the layered kernel")
     hold_ckpt("NCCL rank 0", nccl_ckpt)
@@ -2277,7 +2290,9 @@ def main() -> None:
               f"{dict(zip(P17_FIELDS, r['bf']['point']))} in {r['bf']['s']:.3f} s, bitflip_u8 "
               f"launches {r['bf']['launches']}; sharded decoder on phase 5's first batch "
               f"({r['decoder']['frames']} frames) in {r['decoder']['s']:.3f} s, launches "
-              f"{r['decoder']['launches']}; all_reduce of the counters {r['allreduce_ms']:.4f} ms")
+              f"{r['decoder']['launches']}; all_reduce of the counters {r['allreduce_ms']:.4f} ms; "
+              f"mesh.collective_calls all_reduce ms {r['ms']['all_reduce']}, bf "
+              f"{r['bf']['all_reduce']} for {r['ms']['batches']} and {r['bf']['batches']} batches")
         if r["ms"]["point"] != want_ms or r["bf"]["point"] != want_bf:
             fail(f"rank {r['rank']}: the two-rank counters differ from the unsharded run's")
         if r["decoder"]["digest"] != want_digest:
@@ -2285,6 +2300,9 @@ def main() -> None:
                  "bits, success or iterations")
         if min(r["ms"]["launches"], r["bf"]["launches"], r["decoder"]["launches"]) < 1:
             fail(f"rank {r['rank']} launched no kernel in a phase 17 case")
+        if any(r[key]["all_reduce"] != r[key]["batches"] for key in ("ms", "bf")):
+            fail(f"rank {r['rank']} counted another number of all_reduce calls than batches "
+                 "drained")
         hold_ckpt(f"Gloo rank {r['rank']}", r["ckpt"])
         hold_split(f"Gloo rank {r['rank']}", r["split"])
     print(f"  two Gloo ranks: counters == the unsharded run's, the sharded decode == the "

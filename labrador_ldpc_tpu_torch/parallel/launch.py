@@ -41,6 +41,7 @@ differ; pass `--impl cuda_qc` for the flooding schedule on the card.
 from __future__ import annotations
 
 import argparse
+import datetime
 import socket
 import subprocess
 import sys
@@ -58,6 +59,7 @@ def initialize(
     process_id: int | None = None,
     backend: str | None = None,
     device="cuda",
+    timeout: float | None = None,
 ) -> None:
     """Join this process to the default process group.
 
@@ -67,6 +69,12 @@ def initialize(
     torchrun sets them). `backend` defaults to "nccl" for CUDA and "gloo"
     for the CPU; "gloo" on CUDA puts several ranks on one card (NCCL
     refuses two ranks on one device), its collectives on host copies.
+
+    `timeout` (seconds) bounds the wait for the other ranks, at the start and
+    in every collective; None keeps PyTorch's default (10 minutes for NCCL,
+    30 for Gloo). A rank that dies leaves the others in their next
+    collective: past the timeout Gloo raises there and NCCL's watchdog ends
+    the process.
     """
     dev = resolve_device(device)
     if backend is None:
@@ -82,6 +90,7 @@ def initialize(
         init_method=init_method,
         world_size=-1 if num_processes is None else num_processes,
         rank=-1 if process_id is None else process_id,
+        **({} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}),
     )
 
 

@@ -13,11 +13,19 @@ batch is the only dimension to split.
 A single process with no process group is a mesh of one rank. Under the
 Gloo backend the collectives run on host copies of CUDA tensors (Gloo's
 collectives are host collectives); NCCL runs them on the card.
+
+On a mesh with a process group each collective is a span (`utils.tracing`:
+`ldpc.all_reduce`, `ldpc.all_gather`, `ldpc.broadcast`, args bytes), host
+copies included, and is counted by kind in `collective_calls` and
+`collective_bytes`: the bytes of the tensor this rank contributes (for a
+broadcast, of rank 0's pickled object). A mesh of one rank returns before
+either, so it pays nothing; nothing here resets the counters.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 from dataclasses import dataclass
 
 import torch
@@ -25,6 +33,7 @@ import torch.distributed as dist
 
 from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
+from ..utils.tracing import span
 
 __all__ = [
     "BatchMesh",
@@ -35,7 +44,19 @@ __all__ = [
     "make_sharded_decoder",
     "make_sharded_bf_decoder",
     "make_sharded_trial_step",
+    "collective_calls",
+    "collective_bytes",
 ]
+
+# collectives of meshes with a process group since import, by kind; read
+# and reset as `mesh.collective_calls` and `mesh.collective_bytes`
+collective_calls = dict.fromkeys(("all_reduce", "all_gather", "broadcast"), 0)
+collective_bytes = dict.fromkeys(collective_calls, 0)
+
+
+def _count(kind: str, n: int) -> None:
+    collective_calls[kind] += 1
+    collective_bytes[kind] += n
 
 
 @dataclass(frozen=True)
@@ -88,20 +109,26 @@ def all_reduce_sum(mesh: BatchMesh, t: torch.Tensor) -> torch.Tensor:
     Gloo); `t` itself with one rank and no process group."""
     if mesh.backend is None:
         return t
-    x = t.cpu() if _on_host(mesh, t) else t
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.group)
-    return x.to(t.device)
+    n = t.nbytes
+    _count("all_reduce", n)
+    with span("ldpc.all_reduce", "bytes", n):
+        x = t.cpu() if _on_host(mesh, t) else t
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.group)
+        return x.to(t.device)
 
 
 def all_gather_rows(mesh: BatchMesh, t: torch.Tensor) -> torch.Tensor:
     """Every rank's rows of `t`, concatenated in rank order."""
     if mesh.backend is None:
         return t
-    x = t.cpu() if _on_host(mesh, t) else t
-    out = torch.empty((mesh.world_size * x.shape[0], *x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
-    dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.group)
-    return out.to(t.device)
+    n = t.nbytes
+    _count("all_gather", n)
+    with span("ldpc.all_gather", "bytes", n):
+        x = t.cpu() if _on_host(mesh, t) else t
+        out = torch.empty((mesh.world_size * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.group)
+        return out.to(t.device)
 
 
 def broadcast_object(mesh: BatchMesh, obj):
@@ -113,7 +140,9 @@ def broadcast_object(mesh: BatchMesh, obj):
         return obj
     box = [obj]
     src = 0 if mesh.group is None else dist.get_global_rank(mesh.group, 0)
-    dist.broadcast_object_list(box, src=src, group=mesh.group)
+    with span("ldpc.broadcast"):
+        dist.broadcast_object_list(box, src=src, group=mesh.group)
+    _count("broadcast", len(pickle.dumps(box[0])))
     return box[0]
 
 

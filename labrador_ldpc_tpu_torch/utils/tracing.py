@@ -37,6 +37,11 @@ trace writer prints the float 2.0 as `2.`, which JSON readers refuse); a
           ldpc.decode             the decoder's call
           ldpc.count              the batch's counters
         ldpc.waterfall.drain    one batch's counters read back to the host
+    ldpc.all_reduce         parallel.mesh.all_reduce_sum on a mesh with a process
+                            group (args bytes; one a batch in ldpc.trial_step,
+                            after ldpc.count)
+    ldpc.all_gather         parallel.mesh.all_gather_rows, the same (args bytes)
+    ldpc.broadcast          parallel.mesh.broadcast_object, the same
 """
 
 from __future__ import annotations
