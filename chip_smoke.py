@@ -8,9 +8,9 @@ JAX package, and reads the CCSDS golden parity from tests/golden_vectors.py
 (plain data). Every phase is fatal on failure; nothing is caught. With
 --parent DIR (a checkout of another commit, e.g. `git archive` of the parent
 unpacked into a gitignored directory), phase 7 also times that checkout's
-sum-product, flooding min-sum and bit-flip kernels, in turns with this
-one's, on the same inputs (and counts the SASS of its bit-flip kernel an
-edge visit), phases 9 and 13 drive its `bf`, `cuda_qc` and `sp_layered`
+layered min-sum, sum-product, flooding min-sum and bit-flip kernels, in
+turns with this one's, on the same inputs (and counts the SASS of its
+bit-flip kernel an edge visit), phases 9 and 13 drive its `bf`, `cuda_qc` and `sp_layered`
 points on the same draws, which must give the same frame errors (and, for
 `bf`, bit errors), and phase 14 times its flooding kernel on the same rescue
 batch.
@@ -62,16 +62,21 @@ batch.
      kernel against plain version, bit for bit;
   7. the layered kernel's launch shape for every code and form (threads,
      checks a thread, shared bytes, CTAs per SM as the card's occupancy
-     calculator reports them), which must equal launch_config; then
+     calculator reports them, which must equal the count at ptxas's
+     registers and be no fewer than launch_config's at 64; the syndrome's
+     check words and windows a sweep); then
      times (CUDA events) of each kernel form and of its plain version at
      its path's shapes, and each one's bound: the layered kernel (float32,
      int8, int16, bf16) and the flooding kernel (float32, bf16, int8, int16)
      at TM8192,
      B=16384, maxiters=50 on the 3-flip batch of phase 5, the flooding
-     float32 form also at Eb/N0 1.1 dB, every form at TM1536 (each flooding
-     time with its launch shape, barriers per iteration and, with --parent,
-     the parent's kernel in turns; at TM8192 the issue floor of the SASS
-     count), the
+     float32 form also at Eb/N0 1.1 dB, the layered float32 form also at
+     1.5 dB (TM8192, B=16384, and TC512, B=32768), every form at TM1536
+     (each layered time with its launch shape and its syndrome's check words
+     and windows a sweep, each flooding time with its launch shape and
+     barriers per iteration, and, with --parent, the parent's kernel of
+     either kind in turns; at TM8192 the flooding kernel's issue floor of
+     the SASS count), the
      bit-flip kernel at TM8192, B=16384, maxiters=50 on the 3-flip batch
      (the decode_bf protocol, benches/decode.rs:22-37), on a BSC(p=0.006)
      batch where failing frames run deep, and at TM1536 on 3 flips, each
@@ -514,7 +519,7 @@ def load_parent(root: Path):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["parent_port"] = mod
     spec.loader.exec_module(mod)
-    for name in ("cuda_sp", "cuda_qc", "cuda_bf", "_nvcc"):
+    for name in ("cuda_layered", "cuda_sp", "cuda_qc", "cuda_bf", "_nvcc"):
         importlib.import_module(f"parent_port.ops.{name}")
     return mod
 
@@ -845,8 +850,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of the parent commit: phases 7, 9, 13 and 14 time its "
-                         "sum-product, flooding and bit-flip kernels in turns with this one's, on "
-                         "the same inputs")
+                         "layered, sum-product, flooding and bit-flip kernels in turns with this "
+                         "one's, on the same inputs")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
@@ -946,15 +951,18 @@ def main() -> None:
     sp_sass = sass_counts(built[cuda_sp.SOURCE].path, "sumproduct_kernel", cuda_sp.INSTANCES[6], 6)
     flood_sass = flood_sass_counts(built[cuda_qc.SOURCE].path, cuda_qc.INSTANCES[6], 3, 6)
     bf_sass = bf_sass_counts(built[cuda_bf.SOURCE].path)
-    parent = parent_sp = parent_qc = parent_bf = parent_bf_sass = None
+    parent = parent_layered = parent_sp = parent_qc = parent_bf = parent_bf_sass = None
     if args.parent is not None:
         parent = load_parent(args.parent)
-        parent_sp, parent_qc, parent_bf = parent.ops.cuda_sp, parent.ops.cuda_qc, parent.ops.cuda_bf
+        parent_layered, parent_sp = parent.ops.cuda_layered, parent.ops.cuda_sp
+        parent_qc, parent_bf = parent.ops.cuda_qc, parent.ops.cuda_bf
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(3) as pool:  # one nvcc per source, all at once
-            list(pool.map(lambda mod: mod._lib(), (parent_sp, parent_qc, parent_bf)))
-        print(f"  the parent's {cuda_sp.SOURCE}, {cuda_qc.SOURCE} and {cuda_bf.SOURCE} "
-              f"({args.parent}) built and loaded in {time.perf_counter() - t0:.2f} s")
+        with ThreadPoolExecutor(4) as pool:  # one nvcc per source, all at once
+            list(pool.map(lambda mod: mod._lib(),
+                          (parent_layered, parent_sp, parent_qc, parent_bf)))
+        print(f"  the parent's {cuda_layered.SOURCE}, {cuda_sp.SOURCE}, {cuda_qc.SOURCE} and "
+              f"{cuda_bf.SOURCE} ({args.parent}) built and loaded in "
+              f"{time.perf_counter() - t0:.2f} s")
         parent_bf_sass = parent_bf_sass_counts(parent.ops._nvcc.build(cuda_bf.SOURCE).path)
     cuda_layered._lib()  # load the libraries and declare the C signatures
     cuda_qc._lib()
@@ -1308,15 +1316,16 @@ def main() -> None:
 
     def measure(kind, c, llrs, label, kern_reps=10, plain_reps=2, all_converge=True):
         """Kernel and plain version in turns (plain, kernel, kernel, plain)
-        on (B, n) LLRs of code c (with --parent, the parent's flooding kernel
-        too: plain, parent, kernel, kernel, parent, plain); returns the
-        numbers of one row."""
+        on (B, n) LLRs of code c (with --parent, the parent's kernel of the
+        same kind too: plain, parent, kernel, kernel, parent, plain); returns
+        the numbers of one row."""
         kernel, plain_fn = kernels[kind]
         s = qc_structure(c)
         plain = lambda: plain_fn(s, llrs, maxiters)  # noqa: E731
         kern = lambda: kernel(c, llrs, maxiters)  # noqa: E731
-        old = parent_qc and kind == "flooding" and (
-            lambda: parent_qc.flooding_minsum(c.value, llrs, maxiters))  # its own codes
+        old_fn = {"layered": parent_layered and parent_layered.layered_minsum,
+                  "flooding": parent_qc and parent_qc.flooding_minsum}[kind]
+        old = old_fn and (lambda: old_fn(c.value, llrs, maxiters))  # its own codes
         plain_a, want = time_ms(plain, plain_reps)
         if old:
             parent_a, prev = time_ms(old, kern_reps)
@@ -1353,6 +1362,7 @@ def main() -> None:
               f"{sweeps / nb:.3f} per codeword); in/out bytes {io_bytes}; ops {ops}; bound "
               f"{row['bound_ms']:.4f} ms (bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms)")
         if kind == "layered":
+            # the shape with the syndrome's work a sweep: check words and windows
             print(f"  {label}: launch shape {layered_shape(c, llrs.dtype)}")
             return row
         print(f"  {label}: launch shape {flood_shape(c, llrs.dtype)}")
@@ -1385,20 +1395,28 @@ def main() -> None:
     def layered_shape(c, dtype) -> dict:
         """The layered kernel's launch shape for code c and a dtype form, its
         CTAs per SM as the card's occupancy calculator reports them; fails
-        unless that equals launch_config."""
+        unless that equals the count at ptxas's registers of its instance
+        (`cuda_sp.ctas_per_sm`, as phase 15 holds it), which is never below
+        launch_config's at the 64-register budget."""
         cfg = cuda_layered.launch_config(c, dtype)
+        regs = layered_regs[forms[dtype], cfg["checks_per_thread"]]
+        want = cuda_sp.ctas_per_sm(cfg["smem_bytes"], cfg["threads"], regs)
         card = cuda_layered.card_ctas_per_sm(c, dtype)
-        if card != cfg["ctas_per_sm"]:
-            fail(f"{c} {forms[dtype]}: {card} CTAs per SM on the card, launch_config says "
-                 f"{cfg['ctas_per_sm']}")
-        return cfg
+        if card != want or card < cfg["ctas_per_sm"]:
+            fail(f"{c} {forms[dtype]}: {card} CTAs per SM on the card, {want} at ptxas's {regs} "
+                 f"registers, launch_config says {cfg['ctas_per_sm']} at 64")
+        return dict(cfg, registers=regs, card_ctas_per_sm=card)
 
     print("  layered kernel launch shapes (threads, checks a thread, shared bytes, CTAs per SM "
-          "from cudaOccupancyMaxActiveBlocksPerMultiprocessor == launch_config):")
+          "from cudaOccupancyMaxActiveBlocksPerMultiprocessor == at ptxas's registers, and "
+          "launch_config's at 64; syndrome check words and windows a sweep):")
     for c in T.ALL_CODES:
         print(f"    {c.value:6s} " + "; ".join(
             f"{forms[dt]} {cfg['threads']}x{cfg['checks_per_thread']} {cfg['smem_bytes']} B "
-            f"{cfg['ctas_per_sm']}/SM" for dt in forms for cfg in [layered_shape(c, dt)]))
+            f"{cfg['card_ctas_per_sm']}/SM ({cfg['ctas_per_sm']} at 64)"
+            for dt in forms for cfg in [layered_shape(c, dt)])
+            + "; syndrome {syndrome_words} words from {syndrome_windows} windows".format(
+                **cuda_layered.launch_config(c)))
 
     def three_flip_llrs(c, data_np, dtype=torch.float32):
         cw = T.encode(c, torch.from_numpy(data_np).to(dev))
@@ -1432,6 +1450,15 @@ def main() -> None:
     flood_1p1 = measure("flooding", code, card_noisy_llrs(code, B, 1.1, seed=110),
                         f"{code} flooding f32 at 1.1 dB", kern_reps=3, plain_reps=1,
                         all_converge=False)
+    # the layered kernel where the benchmark runs it: the f32 stream's Eb/N0
+    # (about 20 sweeps a frame) and TC512 at a waterfall batch of 32,768
+    layered_1p5 = measure("layered", code, card_noisy_llrs(code, B, 1.5, seed=150),
+                          f"{code} layered f32 at 1.5 dB", kern_reps=3, plain_reps=1,
+                          all_converge=False)
+    c = T.get_code("TC512")
+    layered_tc512 = measure("layered", c, card_noisy_llrs(c, 2 * B, 1.5, seed=151),
+                            f"{c} layered f32 at 1.5 dB", kern_reps=5, plain_reps=1,
+                            all_converge=False)
 
     bf_max_err = 0.0
 
@@ -2383,6 +2410,8 @@ def main() -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
         }
+        if "parent_ms" in row:
+            out["parent_ms"] = row["parent_ms"]
         if also is None:
             del out["also_replaces"]
         return out
@@ -2407,6 +2436,11 @@ def main() -> None:
     print(f"  flooding f32 at 1.1 dB (B={B}, maxiters={maxiters}): kernel {flood_1p1['ms']:.4f} "
           f"ms, plain {flood_1p1['plain_ms']:.4f} ms, bound {flood_1p1['bound_ms']:.4f} ms "
           f"({flood_1p1['bound_by']})")
+    for label, row in (("TM8192 layered f32 at 1.5 dB, B=16384", layered_1p5),
+                       ("TC512 layered f32 at 1.5 dB, B=32768", layered_tc512)):
+        print(f"  {label}, maxiters={maxiters}: kernel {row['ms']:.4f} ms"
+              + (f", parent {row['parent_ms']:.4f} ms" if "parent_ms" in row else "")
+              + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_kind, "count": torch.cuda.device_count()}}))

@@ -15,8 +15,10 @@ or raises. `launches` counts kernel launches and nothing else;
 
 The kernel keeps a codeword's whole state in shared memory and allocates
 nothing; the wrapper allocates the outputs only. Its launch shape comes from
-`launch_config` (plain Python, no card needed), and the addend table from
-`addend_descriptors`; the C side checks both against the code.
+`launch_config` (plain Python, no card needed), the addend table from
+`addend_descriptors`, and the windows of its syndrome on packed hard
+decisions from `syndrome_windows`; the C side checks the shape against the
+code.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ from .qc_minsum import KERNEL_DTYPES, check_llrs, layered_minsum_plain
 from .routing import route_for
 
 __all__ = ["make_ms_decoder_cuda_layered", "layered_minsum", "addend_table",
-           "addend_descriptors", "launch_config", "card_ctas_per_sm", "FORMS", "SOURCE"]
+           "addend_descriptors", "syndrome_windows", "packed_words", "launch_config",
+           "card_ctas_per_sm", "FORMS", "SOURCE"]
 
 SOURCE = "layered_minsum.cu"
 
@@ -106,6 +109,34 @@ def addend_descriptors(s: QCStructure) -> np.ndarray:
     return np.asarray([(lo | end << 19, hi) for (lo, hi), end in zip(out, ends)], dtype=np.int32)
 
 
+def packed_words(m: int) -> int:
+    """Words of a packed block column or row of checks: M/32, and one for
+    M = 16 (TC128), which holds its 16 bits twice over."""
+    return max(1, m // 32)
+
+
+def syndrome_windows(s: QCStructure) -> np.ndarray:
+    """The kernel's syndrome table: (sumA, W) int32 window entries in row
+    order, W = `packed_words(M)`, the bit-flip kernel's forward entries
+    (`cuda_bf.window_table`): entry (e, j) is the 32-bit window of addend e's
+    packed block column that checks 32*j onward of its row read, b | w0 << 5
+    | w1 << 18 (the window's first bit b in word w0, continued in w1). Check
+    word j of a row is the XOR of its addends' windows j.
+
+    A window stays inside the addend's segment, the block for a rotation
+    and a quarter of it for a pi permutation, so M must be at least 16 and
+    a pi permutation's M/4 at least 32."""
+    from .cuda_bf import window_table  # that module imports this one
+
+    if s.m < 16 or s.m & (s.m - 1):
+        raise ValueError(f"the CUDA layered kernel's syndrome needs a power-of-two M >= 16, "
+                         f"got {s.m}")
+    if s.m < 128 and any(p.kind == "pi" for row in s.rows for p in row):
+        raise ValueError(f"the CUDA layered kernel's syndrome needs M/4 >= 32 for a pi "
+                         f"permutation, got M = {s.m}")
+    return window_table(s)[0]
+
+
 def _shape(code: LDPCCode) -> tuple[int, int, int, int, int]:
     """M, R, Cc, sumA and the widest layer's addend count of `code`."""
     s = qc_structure(code)
@@ -115,23 +146,27 @@ def _shape(code: LDPCCode) -> tuple[int, int, int, int, int]:
 def launch_config(code: LDPCCode | str, dtype: torch.dtype = torch.float32) -> dict:
     """The kernel's launch shape for `code` and an LLR dtype, on an H100:
     threads and checks a thread per CTA (one CTA per codeword), its dynamic
-    shared bytes, and the CTAs that fit on one SM.
+    shared bytes, the CTAs that fit on one SM, and the work of the syndrome
+    a sweep: `syndrome_words` check words of 32 checks (R*W, W =
+    `packed_words(M)`) from `syndrome_windows` windows (sumA*W).
 
     Shared bytes: the posteriors (Cc*M of 4 bytes, of 2 in the bf16 form),
-    t' (sumA*M), m1 and m2 (2*R*M, all of the LLRs' type) and the sign
-    products (R*M bytes). The threads are the largest power of two, at most M
-    (at least one warp) and 1024, that keeps the CTAs shared memory allows
-    within THREADS_PER_SM, so that registers hold no fewer CTAs on an SM than
-    shared memory does; but a thread takes at most four checks (more spill
-    registers), and where that needs more threads (TM2048 int8), the
-    register budget sets the CTAs an SM holds."""
+    t' (sumA*M), m1 and m2 (2*R*M, all of the LLRs' type), the sign
+    products (R*M/32 words, rounded up) and the hard decisions (Cc*W
+    words), a bit a check or variable. The threads are the largest power of
+    two, at most M (at least one warp) and 1024, that keeps the CTAs shared
+    memory allows within THREADS_PER_SM, so that registers hold no fewer
+    CTAs on an SM than shared memory does; but a thread takes at most four
+    checks (more spill registers), and where that needs more threads (TM2048
+    int8), the register budget sets the CTAs an SM holds."""
     code = get_code(code)
     if dtype not in FORMS:
         raise ValueError(f"the CUDA layered kernel takes {list(FORMS)}, got {dtype}")
     M, R, Cc, sumA, _ = _shape(code)
     size = torch.empty((), dtype=dtype).element_size()
     va_size = 2 if dtype == torch.bfloat16 else 4
-    smem = Cc * M * va_size + (sumA + 2 * R) * M * size + R * M
+    W = packed_words(M)
+    smem = Cc * M * va_size + (sumA + 2 * R) * M * size + 4 * (-(-R * M // 32) + Cc * W)
     if smem > CTA_SHARED_MAX:
         raise ValueError(f"{code} needs {smem} B of shared memory, over {CTA_SHARED_MAX}")
     ctas = min(MAX_CTAS_PER_SM, SM_SHARED_BYTES // (smem + CTA_RESERVED_BYTES))
@@ -139,7 +174,8 @@ def launch_config(code: LDPCCode | str, dtype: torch.dtype = torch.float32) -> d
     threads = max(32, M // CHECKS_PER_THREAD[-1],
                   min(M, MAX_THREADS, 1 << (budget.bit_length() - 1)))
     return dict(threads=threads, checks_per_thread=max(1, M // threads), smem_bytes=smem,
-                ctas_per_sm=min(ctas, THREADS_PER_SM // threads))
+                ctas_per_sm=min(ctas, THREADS_PER_SM // threads), syndrome_words=R * W,
+                syndrome_windows=sumA * W)
 
 
 @lru_cache(maxsize=None)
@@ -152,12 +188,18 @@ def _kernel_tables(code: LDPCCode, device: torch.device):
 
 
 @lru_cache(maxsize=None)
+def _syndrome_table(code: LDPCCode, device: torch.device) -> torch.Tensor:
+    """`syndrome_windows` on the device."""
+    return torch.as_tensor(syndrome_windows(qc_structure(code)), device=device)
+
+
+@lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for form in FORMS.values():
         fn = getattr(lib, f"layered_minsum_{form}")
-        fn.argtypes = [ptr] * 6 + [i32] * 9 + [ctypes.c_float] + [i32] * 3 + [ptr]
+        fn.argtypes = [ptr] * 7 + [i32] * 9 + [ctypes.c_float] + [i32] * 3 + [ptr]
         fn.restype = i32
         occ = getattr(lib, f"layered_minsum_{form}_ctas_per_sm")
         occ.argtypes = [i32] * 8 + [ctypes.POINTER(i32)]
@@ -191,14 +233,15 @@ def _launch(code: LDPCCode, llrs: torch.Tensor, maxiters: int, alpha: float | No
     if B == 0:
         return MSResult(success, iterations, bits)
     desc, off = _kernel_tables(code, dev)
+    win = _syndrome_table(code, dev)
     cfg = launch_config(code, llrs.dtype)
     form = FORMS[llrs.dtype]
     fn = getattr(_lib(), f"layered_minsum_{form}")
     with torch.cuda.device(dev):
         err = fn(
             llrs.data_ptr(), bits.data_ptr(), success.data_ptr(), iterations.data_ptr(),
-            desc.data_ptr(), off.data_ptr(), B, n, M, R, Cc, sumA, row_max, maxiters,
-            0 if alpha is None else 1, 0.0 if alpha is None else float(alpha),
+            desc.data_ptr(), off.data_ptr(), win.data_ptr(), B, n, M, R, Cc, sumA, row_max,
+            maxiters, 0 if alpha is None else 1, 0.0 if alpha is None else float(alpha),
             cfg["threads"], cfg["checks_per_thread"], cfg["smem_bytes"],
             torch.cuda.current_stream(dev).cuda_stream,
         )

@@ -76,64 +76,64 @@ class KernelRoute:
 
 ROUTES: dict[str, KernelRoute] = {
     "TC128": KernelRoute(
-        layered=Forms(Check(32, 1, 3136), Check(32, 1, 1600), Check(32, 1, 1216),
-                      Check(32, 1, 1856)),
+        layered=Forms(Check(32, 1, 3112), Check(32, 1, 1576), Check(32, 1, 1192),
+                      Check(32, 1, 1832)),
         flooding=Forms(Check(32, 1, 2048), Check(32, 1, 1536), Check(32, 1, 1280),
                        Check(32, 1, 1536)),
         sumproduct=Check(32, 1, 2560),
         bitflip=Lanes(256, 4, 64, 9528)),
     "TC256": KernelRoute(
-        layered=Forms(Check(32, 1, 6272), Check(32, 1, 3200), Check(32, 1, 2432),
-                      Check(32, 1, 3712)),
+        layered=Forms(Check(32, 1, 6192), Check(32, 1, 3120), Check(32, 1, 2352),
+                      Check(32, 1, 3632)),
         flooding=Forms(Check(32, 1, 4096), Check(32, 1, 3072), Check(32, 1, 2560),
                        Check(32, 1, 3072)),
         sumproduct=Check(32, 1, 5120),
         bitflip=Lanes(256, 4, 64, 9528)),
     "TC512": KernelRoute(
-        layered=Forms(Check(32, 2, 12544), Check(32, 2, 6400), Check(32, 2, 4864),
-                      Check(32, 2, 7424)),
+        layered=Forms(Check(32, 2, 12384), Check(32, 2, 6240), Check(32, 2, 4704),
+                      Check(32, 2, 7264)),
         flooding=Forms(Check(64, 1, 8192), Check(64, 1, 6144), Check(64, 1, 5120),
                        Check(64, 1, 6144)),
         sumproduct=Check(64, 1, 10240),
         bitflip=Lanes(256, 8, 32, 9784)),
     "TM1280": KernelRoute(
-        layered=Forms(Check(128, 1, 29056), Check(64, 2, 14720), Check(32, 4, 11776),
-                      Check(64, 2, 17536)),
+        layered=Forms(Check(128, 1, 28896), Check(64, 2, 14560), Check(32, 4, 11616),
+                      Check(64, 2, 17376)),
         flooding=Forms(Check(128, 1, 21248), Check(128, 1, 15616), Check(128, 1, 12800),
                        Check(128, 1, 15616)),
         sumproduct=Check(128, 1, 25600),
         bitflip=Lanes(256, 16, 16, 13344)),
     "TM1536": KernelRoute(
-        layered=Forms(Check(128, 2, 37632), Check(64, 4, 19200), Check(64, 4, 15360),
-                      Check(64, 4, 22784)),
+        layered=Forms(Check(128, 2, 37184), Check(64, 4, 18752), Check(64, 4, 14912),
+                      Check(64, 4, 22336)),
         flooding=Forms(Check(256, 1, 26112), Check(256, 1, 18944), Check(256, 1, 15360),
                        Check(256, 1, 18944)),
         sumproduct=Check(256, 1, 30720),
         bitflip=Lanes(256, 32, 8, 9456)),
     "TM2048": KernelRoute(
-        layered=Forms(Check(256, 2, 54784), Check(128, 4, 28160), Check(128, 4, 22528),
-                      Check(128, 4, 33280)),
+        layered=Forms(Check(256, 2, 53760), Check(128, 4, 27136), Check(128, 4, 21504),
+                      Check(128, 4, 32256)),
         flooding=Forms(Check(256, 2, 35840), Check(256, 2, 25600), Check(256, 2, 20480),
                        Check(256, 2, 25600)),
         sumproduct=Check(256, 2, 40960),
         bitflip=Lanes(256, 32, 8, 13736)),
     "TM5120": KernelRoute(
-        layered=Forms(Check(512, 1, 116224), Check(256, 2, 58880), Check(256, 2, 47104),
-                      Check(256, 2, 70144)),
+        layered=Forms(Check(512, 1, 115584), Check(256, 2, 58240), Check(256, 2, 46464),
+                      Check(256, 2, 69504)),
         flooding=Forms(Check(512, 1, 84992), Check(512, 1, 62464), Check(512, 1, 51200),
                        Check(512, 1, 62464)),
         sumproduct=Check(512, 1, 102400),
         bitflip=Lanes(256, 32, 8, 29120)),
     "TM6144": KernelRoute(
-        layered=Forms(Check(1024, 1, 150528), Check(256, 4, 76800), Check(256, 4, 61440),
-                      Check(512, 2, 91136)),
+        layered=Forms(Check(1024, 1, 148736), Check(256, 4, 75008), Check(256, 4, 59648),
+                      Check(512, 2, 89344)),
         flooding=Forms(Check(1024, 1, 104448), Check(1024, 1, 75776), Check(1024, 1, 61440),
                        Check(1024, 1, 75776)),
         sumproduct=Check(1024, 1, 122880),
         bitflip=Lanes(256, 32, 8, 37680)),
     "TM8192": KernelRoute(
-        layered=Forms(Check(1024, 2, 219136), Check(512, 4, 112640), Check(512, 4, 90112),
-                      Check(1024, 2, 133120)),
+        layered=Forms(Check(1024, 2, 215040), Check(512, 4, 108544), Check(512, 4, 86016),
+                      Check(1024, 2, 129024)),
         flooding=Forms(Check(1024, 2, 143360), Check(1024, 2, 102400), Check(1024, 2, 81920),
                        Check(1024, 2, 102400)),
         sumproduct=Check(1024, 2, 163840),

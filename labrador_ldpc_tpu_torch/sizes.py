@@ -78,7 +78,11 @@ def _table_bytes(code: LDPCCode, impl: str) -> int:
     if impl == "cuda_bf":
         return 4 * len(cuda_bf.kernel_table(code)[0]) + 4  # and the codeword counter
     desc_off = 4 * (2 * sum_a + s.n_block_rows + 1)  # two words an addend, the offsets
-    return desc_off + (4 * sum_a if impl == "cuda_qc" else 0)  # sweep 1's run words
+    if impl == "cuda_qc":
+        return desc_off + 4 * sum_a  # sweep 1's run words
+    if impl == "cuda_layered":
+        return desc_off + 4 * sum_a * cuda_layered.packed_words(s.m)  # the syndrome's windows
+    return desc_off
 
 
 def decoder_memory(

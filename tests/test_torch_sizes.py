@@ -73,11 +73,12 @@ def test_unrouted_code_fails_loudly(monkeypatch):
 
 @pytest.mark.parametrize("code,impl,dtype,want", [
     # threads, codewords/CTA, shared/CTA, shared/cw, CTAs/SM at 64 registers,
-    # B/cw/decode, device bytes of a decode of 16384
+    # B/cw/decode, device bytes of a decode of 16384 (the layered tables: the
+    # descriptors, the offsets and 15 x 64 syndrome windows)
     ("TM8192", "cuda_layered", torch.float32,
-     (1024, 1, 219136, 219136, 1, 8192 * 4 + 10240 + 5, 16384 * 43013 + 4 * (30 + 4))),
+     (1024, 1, 215040, 215040, 1, 8192 * 4 + 10240 + 5, 16384 * 43013 + 4 * (30 + 4 + 960))),
     ("TM8192", "cuda_layered", torch.int8,
-     (512, 1, 90112, 90112, 2, 8192 + 10240 + 5, 16384 * 18437 + 4 * (30 + 4))),
+     (512, 1, 86016, 86016, 2, 8192 + 10240 + 5, 16384 * 18437 + 4 * (30 + 4 + 960))),
     ("TM8192", "cuda_qc", torch.bfloat16,
      (1024, 1, 102400, 102400, 1, 8192 * 2 + 10240 + 5, 16384 * 26629 + 4 * (30 + 4 + 15))),
     ("TM8192", "cuda_sp", torch.float32,
@@ -85,11 +86,11 @@ def test_unrouted_code_fails_loudly(monkeypatch):
     ("TM8192", "cuda_bf", None,
      (256, 8, 54824, 5888, 4, 8192 + 10240 + 5, 16384 * 18437 + 7720 + 4)),
     ("TC128", "cuda_layered", torch.float32,
-     (32, 1, 3136, 3136, 32, 128 * 4 + 128 + 5, 16384 * 645 + 4 * (2 * 32 + 5))),
+     (32, 1, 3112, 3112, 32, 128 * 4 + 128 + 5, 16384 * 645 + 4 * (2 * 32 + 5 + 32))),
     ("TC128", "cuda_bf", None, (256, 64, 9528, 144, 4, 128 + 128 + 5, None)),
 ])
 def test_decoder_memory_pinned(code, impl, dtype, want):
-    """Rows pinned by hand: TM8192 layered float32 holds 219,136 shared bytes
+    """Rows pinned by hand: TM8192 layered float32 holds 215,040 shared bytes
     a codeword, bit-flip 5,888 a codeword and 54,824 a CTA."""
     r = sizes.decoder_memory(code, impl, dtype or torch.float32)
     got = (r.threads, r.codewords_per_cta, r.smem_bytes_per_cta, r.smem_bytes_per_cw,
