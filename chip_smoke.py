@@ -139,9 +139,10 @@ batch.
      layered form and one of the f32 flooding form only if a frame failed,
      and every converged frame's data bits those sent;
  15. the launch table: for every code, kernel and dtype form,
-     ops/routing.ROUTES equals the kernel's launch_config, and the CTAs per SM
-     that sizes.decoder_memory reports at ptxas's registers (phase 1) equal
-     the card's occupancy calculator (each wrapper's card_ctas_per_sm); then
+     the CTAs per SM of the route's shape (ops/routing.route_for) by the one
+     occupancy rule (ops/card.ctas_per_sm), and those sizes.decoder_memory
+     reports, at ptxas's registers (phase 1) equal the card's occupancy
+     calculator (each wrapper's card_ctas_per_sm); then
      the memory table of `python -m labrador_ldpc_tpu_torch sizes`;
  16. serving (serve.py): 16 batches of TM8192, B=16384, 3 flips, 4 in
      flight, every frame checked (converged, data bytes those sent), the
@@ -870,6 +871,7 @@ def main() -> None:
     from labrador_ldpc_tpu_torch.channel.hard import make_bf_trial_step
     from labrador_ldpc_tpu_torch.codes.expand import qc_structure
     from labrador_ldpc_tpu_torch.ops import _nvcc, cuda_bf, cuda_encoder, cuda_layered, cuda_qc, cuda_sp
+    from labrador_ldpc_tpu_torch.ops.card import ctas_per_sm, sms
     from labrador_ldpc_tpu_torch.ops.bitflip import bitflip_plain
     from labrador_ldpc_tpu_torch.ops.encoder import _g_parity_f32, encode_bits_plain
     from labrador_ldpc_tpu_torch.ops.qc_minsum import flooding_minsum_plain, layered_minsum_plain
@@ -990,7 +992,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.split()[0])
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_sms = sms(0)
     print(f"{n_sms} SMs, SM clock at most {sm_clock_mhz} MHz")
 
     # ---- 3. encoder -----------------------------------------------------------
@@ -1395,17 +1397,17 @@ def main() -> None:
     def layered_shape(c, dtype) -> dict:
         """The layered kernel's launch shape for code c and a dtype form, its
         CTAs per SM as the card's occupancy calculator reports them; fails
-        unless that equals the count at ptxas's registers of its instance
-        (`cuda_sp.ctas_per_sm`, as phase 15 holds it), which is never below
-        launch_config's at the 64-register budget."""
+        unless that equals the count of the one occupancy rule at ptxas's
+        registers of its instance (`card.ctas_per_sm`, as phase 15 holds it),
+        which is never below launch_config's at the 64-register budget."""
         cfg = cuda_layered.launch_config(c, dtype)
         regs = layered_regs[forms[dtype], cfg["checks_per_thread"]]
-        want = cuda_sp.ctas_per_sm(cfg["smem_bytes"], cfg["threads"], regs)
-        card = cuda_layered.card_ctas_per_sm(c, dtype)
-        if card != want or card < cfg["ctas_per_sm"]:
-            fail(f"{c} {forms[dtype]}: {card} CTAs per SM on the card, {want} at ptxas's {regs} "
-                 f"registers, launch_config says {cfg['ctas_per_sm']} at 64")
-        return dict(cfg, registers=regs, card_ctas_per_sm=card)
+        want = ctas_per_sm(cfg["smem_bytes"], cfg["threads"], regs)
+        on_card = cuda_layered.card_ctas_per_sm(c, dtype)
+        if on_card != want or on_card < cfg["ctas_per_sm"]:
+            fail(f"{c} {forms[dtype]}: {on_card} CTAs per SM on the card, {want} at ptxas's "
+                 f"{regs} registers, launch_config says {cfg['ctas_per_sm']} at 64")
+        return dict(cfg, registers=regs, card_ctas_per_sm=on_card)
 
     print("  layered kernel launch shapes (threads, checks a thread, shared bytes, CTAs per SM "
           "from cudaOccupancyMaxActiveBlocksPerMultiprocessor == at ptxas's registers, and "
@@ -2151,36 +2153,26 @@ def main() -> None:
     for c in T.ALL_CODES:
         r = routing.route_for(c)
         _, _, _, _, row_max = cuda_layered._shape(c)
-        cases = []  # (impl, dtype, route entry, launch_config, ptxas registers, card CTAs/SM)
+        cases = []  # (impl, dtype, the route's shape, ptxas registers, the card's CTAs/SM)
         for dtype, form in forms.items():
-            for impl, mod, entry_, regs in (
-                    ("cuda_layered", cuda_layered, r.layered,
-                     layered_regs[form, cuda_layered.launch_config(c, dtype)["checks_per_thread"]]),
-                    ("cuda_qc", cuda_qc, r.flooding, flood_regs[form, row_max])):
-                cfg = mod.launch_config(c, dtype)
-                cases.append((impl, dtype, getattr(entry_, form),
-                              routing.Check(cfg["threads"], cfg["checks_per_thread"],
-                                            cfg["smem_bytes"]),
-                              regs, mod.card_ctas_per_sm(c, dtype)))
-        cfg = cuda_sp.launch_config(c)
-        cases.append(("cuda_sp", torch.float32, r.sumproduct,
-                      routing.Check(cfg["threads"], cfg["checks_per_thread"], cfg["smem_bytes"]),
-                      sp_regs[row_max], cuda_sp.card_ctas_per_sm(c)))
-        cfg = cuda_bf.launch_config(c)
-        cases.append(("cuda_bf", torch.float32, r.bitflip,
-                      routing.Lanes(cfg["threads"], cfg["lanes"], cfg["codewords_per_cta"],
-                                    cfg["smem_bytes"]),
-                      bf_regs, cuda_bf.card_ctas_per_sm(c)))
-        for impl, dtype, pinned, computed, regs, card in cases:
-            if pinned != computed:
-                fail(f"{c} {impl} {dtype}: ROUTES {pinned} != launch_config {computed}")
+            shape = getattr(r.layered, form)
+            cases.append(("cuda_layered", dtype, shape, layered_regs[form, shape.checks_per_thread],
+                          cuda_layered.card_ctas_per_sm(c, dtype)))
+            cases.append(("cuda_qc", dtype, getattr(r.flooding, form), flood_regs[form, row_max],
+                          cuda_qc.card_ctas_per_sm(c, dtype)))
+        cases.append(("cuda_sp", torch.float32, r.sumproduct, sp_regs[row_max],
+                      cuda_sp.card_ctas_per_sm(c)))
+        cases.append(("cuda_bf", torch.float32, r.bitflip, bf_regs, cuda_bf.card_ctas_per_sm(c)))
+        for impl, dtype, shape, regs, on_card in cases:
+            want = ctas_per_sm(shape.smem_bytes, shape.threads, regs)
             mem = sizes.decoder_memory(c, impl, dtype, registers=regs)
-            if mem.ctas_per_sm != card:
-                fail(f"{c} {impl} {dtype}: sizes reports {mem.ctas_per_sm} CTAs per SM at "
-                     f"ptxas's {regs} registers, the card's occupancy calculator {card}")
+            if want != on_card or mem.ctas_per_sm != on_card:
+                fail(f"{c} {impl} {dtype}: card.ctas_per_sm gives {want} CTAs per SM at ptxas's "
+                     f"{regs} registers, sizes reports {mem.ctas_per_sm}, the card's occupancy "
+                     f"calculator {on_card}")
             n_checked += 1
-    print(f"  {n_checked} (code, kernel, form) rows: ROUTES == launch_config, and sizes' CTAs per "
-          f"SM at ptxas's registers == the card's occupancy calculator "
+    print(f"  {n_checked} (code, kernel, form) rows: the route's CTAs per SM at ptxas's registers "
+          f"(card.ctas_per_sm) and sizes' == the card's occupancy calculator "
           f"({time.perf_counter() - t15:.2f} s)")
     print(sizes.format_memory_table())
 

@@ -12,7 +12,8 @@ launches and nothing else.
 The kernel keeps each codeword bit-packed in shared memory (32 variables or
 checks a word) and reads each addend as a 32-bit window of a packed block
 column or block row (`window_table`). Its launch shape comes from
-`launch_config` (plain Python, no card needed); its CTAs stay resident and
+`launch_config` (plain Python, no card needed, on the limits of `card`), its
+device table from `kernel_table`; its CTAs stay resident and
 take the batch's codewords from a counter, one int32 that the wrapper
 allocates with the outputs.
 """
@@ -28,11 +29,10 @@ import torch
 from ..codes.expand import BlockPerm, QCStructure, qc_structure
 from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
+from . import card
 from ._nvcc import load_library
 from .bitflip import BFResult, _hard_input, bitflip_plain
-from .cuda_layered import CTA_SHARED_MAX, addend_table
-from .cuda_sp import REGISTERS_PER_THREAD, ctas_per_sm
-from .routing import route_for
+from .cuda_layered import addend_table
 
 __all__ = ["make_bf_decoder_cuda", "bitflip", "vote_addends", "window_table", "kernel_table",
            "launch_config", "card_ctas_per_sm", "SOURCE"]
@@ -155,13 +155,14 @@ def kernel_table(code: LDPCCode | str) -> tuple[np.ndarray, int, int]:
     return flat, vote, vote_row
 
 
-def launch_config(code: LDPCCode | str, registers: int = REGISTERS_PER_THREAD) -> dict:
+def launch_config(code: LDPCCode | str, registers: int = card.REGISTERS_PER_THREAD) -> dict:
     """The kernel's launch shape for `code` on an H100: threads a CTA, the
     lanes of a codeword (the fewest powers of two, 4 to 32, that give each
     parity word of a codeword its own lane) and the codewords a CTA, its
     dynamic shared bytes, and the CTAs that fit on one SM when a thread takes
-    `registers` registers (the kernel's budget by default; ptxas's count
-    gives the card's), by `cuda_sp.ctas_per_sm`.
+    `registers` registers (the kernel's budget by default,
+    __launch_bounds__(256, 4); ptxas's count gives the card's), by
+    `card.ctas_per_sm`.
 
     Shared bytes: the table (`kernel_table`: R+1 + Cc+1 + 2*sumA*W ints)
     once a CTA, and a codeword's packed bits (Cc*W words, W = M/32, one for
@@ -175,10 +176,9 @@ def launch_config(code: LDPCCode | str, registers: int = REGISTERS_PER_THREAD) -
     codewords = THREADS // lanes
     table_len = s.n_block_rows + s.n_block_cols + 2 + 2 * W * sum(map(len, s.rows))
     smem = 4 * (table_len + codewords * (4 * CW + RW))
-    if smem > CTA_SHARED_MAX:
-        raise ValueError(f"{code} needs {smem} B of shared memory, over {CTA_SHARED_MAX}")
+    card.fit_shared(code, smem)
     return dict(threads=THREADS, lanes=lanes, codewords_per_cta=codewords, smem_bytes=smem,
-                ctas_per_sm=ctas_per_sm(smem, THREADS, registers))
+                ctas_per_sm=card.ctas_per_sm(smem, THREADS, registers))
 
 
 @lru_cache(maxsize=None)
@@ -187,8 +187,7 @@ def _device_table(code: LDPCCode, device: torch.device) -> tuple[torch.Tensor, i
     resident on the whole card (its SMs times its CTAs per SM)."""
     table, vote, vote_row = kernel_table(code)
     with torch.cuda.device(device):
-        resident = card_ctas_per_sm(code) * torch.cuda.get_device_properties(
-            device).multi_processor_count
+        resident = card_ctas_per_sm(code) * card.sms(device)
     return torch.as_tensor(table, device=device), vote, vote_row, resident
 
 
@@ -266,7 +265,7 @@ def make_bf_decoder_cuda(code: LDPCCode | str, maxiters: int = 20, device="cuda"
     `device="cpu"` runs the plain version.
     """
     code = get_code(code)
-    route_for(code)  # an unrouted code fails here, before any launch
+    launch_config(code)  # a code the kernel cannot take fails here, before any launch
     dev = resolve_device(device)
 
     def decode(hard_bits) -> BFResult:

@@ -29,9 +29,8 @@ import torch
 
 from ..codes.expand import generator_parity_matrix
 from ..codes.params import LDPCCode, get_code
+from . import card
 from ._nvcc import load_library
-from .cuda_layered import CTA_SHARED_MAX
-from .cuda_sp import ctas_per_sm
 
 __all__ = ["encode_bits", "launch_config", "packed_generator", "SOURCE"]
 
@@ -99,8 +98,7 @@ def launch_config(code: LDPCCode | str, B: int, sms: int) -> dict:
         raise ValueError(f"the CUDA encoder packs a word of k a thread: {code} has {k_words} "
                          f"words, which do not divide {threads} threads")
     smem = 4 * (k_words * (bm + 4) + STAGES * sw * bn)
-    if smem > CTA_SHARED_MAX:
-        raise ValueError(f"{code} needs {smem} B of shared memory, over {CTA_SHARED_MAX}")
+    card.fit_shared(code, smem)
     row_tiles = max(1, -(-B // bm))
     if row_tiles > MAX_ROW_TILES:
         raise ValueError(f"a batch of {B} needs {row_tiles} row tiles, over {MAX_ROW_TILES}")
@@ -108,15 +106,10 @@ def launch_config(code: LDPCCode | str, B: int, sms: int) -> dict:
                    if n_tiles % g == 0 and row_tiles * g >= sms), n_tiles)
     return dict(bm=bm, bn=bn, sw=sw, threads=threads, k_words=k_words, columns=n_tiles * bn,
                 groups=groups, tiles=n_tiles // groups, row_tiles=row_tiles, smem_bytes=smem,
-                ctas_per_sm=ctas_per_sm(smem, threads, REGISTERS))
+                ctas_per_sm=card.ctas_per_sm(smem, threads, REGISTERS))
 
 
 _config = lru_cache(maxsize=64)(launch_config)  # the launch's, by (code, B, SMs)
-
-
-@lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def packed_generator(code: LDPCCode | str) -> np.ndarray:
@@ -171,7 +164,7 @@ def encode_bits(code: LDPCCode | str, bits: torch.Tensor) -> torch.Tensor:
     if B == 0:
         return out.reshape(*lead, n)
     index = dev.index
-    cfg = _config(code, B, _sms(index))
+    cfg = _config(code, B, card.sms(index))
     gen = _device_generator(code, dev)
     # the raw stream handle, and a device switch only where it is needed: a
     # Stream object and a switch cost more host time than the launch

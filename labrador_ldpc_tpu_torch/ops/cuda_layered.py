@@ -15,10 +15,10 @@ or raises. `launches` counts kernel launches and nothing else;
 
 The kernel keeps a codeword's whole state in shared memory and allocates
 nothing; the wrapper allocates the outputs only. Its launch shape comes from
-`launch_config` (plain Python, no card needed), the addend table from
-`addend_descriptors`, and the windows of its syndrome on packed hard
-decisions from `syndrome_windows`; the C side checks the shape against the
-code.
+`launch_config` (plain Python, no card needed, on the limits of `card`), its
+device tables from `kernel_tables`: the addends (`addend_descriptors`) and
+the windows of its syndrome on packed hard decisions (`syndrome_windows`);
+the C side checks the shape against the code.
 """
 
 from __future__ import annotations
@@ -32,29 +32,24 @@ import torch
 from ..codes.expand import QCStructure, qc_structure
 from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
+from . import card
 from ._nvcc import load_library
 from .minsum import MSResult
 from .qc_minsum import KERNEL_DTYPES, check_llrs, layered_minsum_plain
-from .routing import route_for
 
 __all__ = ["make_ms_decoder_cuda_layered", "layered_minsum", "addend_table",
-           "addend_descriptors", "syndrome_windows", "packed_words", "launch_config",
-           "card_ctas_per_sm", "FORMS", "SOURCE"]
+           "addend_descriptors", "syndrome_windows", "packed_words", "kernel_tables",
+           "launch_config", "card_ctas_per_sm", "FORMS", "SOURCE"]
 
 SOURCE = "layered_minsum.cu"
 
 # the kernels' dtype forms: the suffix of each C entry point
 FORMS = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "i8", torch.int16: "i16"}
 
-# H100 (sm_90) shared memory: an SM's 228 KiB, the runtime's 1 KiB reserved
-# per resident CTA, and the 227 KiB one CTA can address
-SM_SHARED_BYTES = 233_472
-CTA_RESERVED_BYTES = 1_024
-CTA_SHARED_MAX = 232_448
-MAX_CTAS_PER_SM = 32
-# threads an SM runs at the kernel's register budget: __launch_bounds__(1024)
-# gives a thread at most 64 of the SM's 65,536 registers
-THREADS_PER_SM = 1_024
+# the kernel's register budget, __launch_bounds__(1024, 1), and the threads
+# an SM runs at it
+REGISTERS = card.REGISTERS_PER_THREAD
+THREADS_PER_SM = 32 * card.warps_per_sm(REGISTERS)
 MAX_THREADS = 1_024
 CHECKS_PER_THREAD = (1, 2, 4)  # the kernel's instances
 
@@ -158,39 +153,38 @@ def launch_config(code: LDPCCode | str, dtype: torch.dtype = torch.float32) -> d
     memory allows within THREADS_PER_SM, so that registers hold no fewer
     CTAs on an SM than shared memory does; but a thread takes at most four
     checks (more spill registers), and where that needs more threads (TM2048
-    int8), the register budget sets the CTAs an SM holds."""
+    int8), the register budget sets the CTAs an SM holds (`card.ctas_per_sm`
+    at REGISTERS)."""
     code = get_code(code)
     if dtype not in FORMS:
         raise ValueError(f"the CUDA layered kernel takes {list(FORMS)}, got {dtype}")
     M, R, Cc, sumA, _ = _shape(code)
-    size = torch.empty((), dtype=dtype).element_size()
+    size = dtype.itemsize
     va_size = 2 if dtype == torch.bfloat16 else 4
     W = packed_words(M)
     smem = Cc * M * va_size + (sumA + 2 * R) * M * size + 4 * (-(-R * M // 32) + Cc * W)
-    if smem > CTA_SHARED_MAX:
-        raise ValueError(f"{code} needs {smem} B of shared memory, over {CTA_SHARED_MAX}")
-    ctas = min(MAX_CTAS_PER_SM, SM_SHARED_BYTES // (smem + CTA_RESERVED_BYTES))
+    card.fit_shared(code, smem)
+    ctas = card.ctas_per_sm(smem, 32, REGISTERS)  # shared memory's count: a warp's CTAs
     budget = THREADS_PER_SM // ctas
     threads = max(32, M // CHECKS_PER_THREAD[-1],
                   min(M, MAX_THREADS, 1 << (budget.bit_length() - 1)))
     return dict(threads=threads, checks_per_thread=max(1, M // threads), smem_bytes=smem,
-                ctas_per_sm=min(ctas, THREADS_PER_SM // threads), syndrome_words=R * W,
+                ctas_per_sm=card.ctas_per_sm(smem, threads, REGISTERS), syndrome_words=R * W,
                 syndrome_windows=sumA * W)
 
 
-@lru_cache(maxsize=None)
-def _kernel_tables(code: LDPCCode, device: torch.device):
-    """The packed addends and the (R+1,) layer offsets on the device."""
+def kernel_tables(code: LDPCCode) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The kernel's device tables, built on the host: the packed addends
+    (`addend_descriptors`), the (R+1,) layer offsets (`addend_table`) and
+    the syndrome's windows (`syndrome_windows`)."""
     s = qc_structure(code)
-    _, off = addend_table(s)
-    return (torch.as_tensor(addend_descriptors(s), device=device),
-            torch.as_tensor(off, device=device))
+    return addend_descriptors(s), addend_table(s)[1], syndrome_windows(s)
 
 
 @lru_cache(maxsize=None)
-def _syndrome_table(code: LDPCCode, device: torch.device) -> torch.Tensor:
-    """`syndrome_windows` on the device."""
-    return torch.as_tensor(syndrome_windows(qc_structure(code)), device=device)
+def _kernel_tables(code: LDPCCode, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """`kernel_tables` on the device."""
+    return tuple(torch.as_tensor(a, device=device) for a in kernel_tables(code))
 
 
 @lru_cache(maxsize=None)
@@ -232,8 +226,7 @@ def _launch(code: LDPCCode, llrs: torch.Tensor, maxiters: int, alpha: float | No
     iterations = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return MSResult(success, iterations, bits)
-    desc, off = _kernel_tables(code, dev)
-    win = _syndrome_table(code, dev)
+    desc, off, win = _kernel_tables(code, dev)
     cfg = launch_config(code, llrs.dtype)
     form = FORMS[llrs.dtype]
     fn = getattr(_lib(), f"layered_minsum_{form}")
@@ -278,7 +271,8 @@ def make_ms_decoder_cuda_layered(
     LLRs (a float32 alpha, as the TPU kernels', also for bfloat16).
     """
     code = get_code(code)
-    route_for(code)  # an unrouted code fails here, before any launch
+    for dtype in FORMS:  # a code the kernel cannot take fails here, before any launch
+        launch_config(code, dtype)
     dev = resolve_device(device)
 
     def decode(llrs) -> MSResult:

@@ -17,9 +17,10 @@ The kernel keeps a codeword's posteriors, LLRs and each edge's variable
 index in shared memory and its check statistics in the registers of one
 owner thread per check; it allocates nothing, and the wrapper allocates the
 outputs only. Its launch shape comes from `launch_config` (plain Python, no
-card needed), its tables from `cuda_layered.addend_descriptors` and
-`flooding_runs` (sweep 1's order, the runs of `flooding_schedule`); the C
-side checks both against the code.
+card needed, on the limits of `card`), its device tables from
+`kernel_tables`: `cuda_layered.addend_descriptors` and `flooding_runs`
+(sweep 1's order, the runs of `flooding_schedule`); the C side checks both
+against the code.
 """
 
 from __future__ import annotations
@@ -33,15 +34,14 @@ import torch
 from ..codes.expand import QCStructure, qc_structure
 from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
+from . import card
 from ._nvcc import load_library
-from .cuda_layered import CTA_SHARED_MAX, FORMS, _shape, addend_descriptors, addend_table
-from .cuda_sp import REGISTERS_PER_THREAD, ctas_per_sm
+from .cuda_layered import FORMS, _shape, addend_descriptors, addend_table
 from .minsum import MSResult
 from .qc_minsum import KERNEL_DTYPES, check_llrs, flooding_minsum_plain
-from .routing import route_for
 
 __all__ = ["make_ms_decoder_cuda_qc", "flooding_minsum", "flooding_schedule", "flooding_runs",
-           "launch_config", "card_ctas_per_sm", "INSTANCES", "SOURCE"]
+           "kernel_tables", "launch_config", "card_ctas_per_sm", "INSTANCES", "SOURCE"]
 
 SOURCE = "flooding_minsum.cu"
 
@@ -88,14 +88,14 @@ def flooding_runs(s: QCStructure) -> np.ndarray:
 
 
 def launch_config(code: LDPCCode | str, dtype: torch.dtype = torch.float32,
-                  registers: int = REGISTERS_PER_THREAD) -> dict:
+                  registers: int = card.REGISTERS_PER_THREAD) -> dict:
     """The kernel's launch shape for `code` and an LLR dtype on an H100:
     threads and checks a thread per CTA (one CTA per codeword, one owner
     thread per check), its dynamic shared bytes, the CTAs that fit on one SM
-    when a thread takes `registers` registers (the kernel's budget by
-    default; ptxas's count of the instance gives the card's), and sweep 1's
-    runs and the barriers an iteration (one after each run, one after sweep
-    2).
+    when a thread takes `registers` registers (the kernel's budget,
+    __launch_bounds__(1024), by default; ptxas's count of the instance gives
+    the card's) by `card.ctas_per_sm`, and sweep 1's runs and the barriers
+    an iteration (one after each run, one after sweep 2).
 
     Shared bytes: two planes of Cc*M values of the LLRs' dtype, the
     posteriors and the LLRs (punctured tail 0), and each edge's variable
@@ -109,23 +109,25 @@ def launch_config(code: LDPCCode | str, dtype: torch.dtype = torch.float32,
         raise ValueError(f"{code}: no kernel instance for rows of {row_max} addends")
     checks = INSTANCES[row_max]
     threads = max(32, M // checks)  # below 32 checks: one warp, lanes past M idle
-    smem = 2 * Cc * M * torch.empty((), dtype=dtype).element_size() + 2 * sumA * M
-    if smem > CTA_SHARED_MAX:
-        raise ValueError(f"{code} needs {smem} B of shared memory, over {CTA_SHARED_MAX}")
+    smem = 2 * Cc * M * dtype.itemsize + 2 * sumA * M
+    card.fit_shared(code, smem)
     runs = len(flooding_schedule(qc_structure(code))[1])
     return dict(threads=threads, checks_per_thread=checks, smem_bytes=smem,
-                ctas_per_sm=ctas_per_sm(smem, threads, registers), runs=runs,
+                ctas_per_sm=card.ctas_per_sm(smem, threads, registers), runs=runs,
                 barriers_per_iteration=runs + 1)
 
 
-@lru_cache(maxsize=None)
-def _kernel_tables(code: LDPCCode, device: torch.device):
-    """The packed addends, sweep 1's run words and the (R+1,) row offsets on
-    the device."""
+def kernel_tables(code: LDPCCode) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The kernel's device tables, built on the host: the packed addends,
+    sweep 1's run words (`flooding_runs`) and the (R+1,) row offsets."""
     s = qc_structure(code)
-    _, off = addend_table(s)
-    return tuple(torch.as_tensor(a, device=device)
-                 for a in (addend_descriptors(s), flooding_runs(s), off))
+    return addend_descriptors(s), flooding_runs(s), addend_table(s)[1]
+
+
+@lru_cache(maxsize=None)
+def _kernel_tables(code: LDPCCode, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """`kernel_tables` on the device."""
+    return tuple(torch.as_tensor(a, device=device) for a in kernel_tables(code))
 
 
 @lru_cache(maxsize=None)
@@ -215,7 +217,8 @@ def make_ms_decoder_cuda_qc(
     `make_ms_decoder_qc_int`'s; `alpha` needs float LLRs.
     """
     code = get_code(code)
-    route_for(code)  # an unrouted code fails here, before any launch
+    for dtype in FORMS:  # a code the kernel cannot take fails here, before any launch
+        launch_config(code, dtype)
     dev = resolve_device(device)
 
     def decode(llrs) -> MSResult:

@@ -11,9 +11,10 @@ raises. `launches` counts kernel launches and nothing else.
 
 The kernel keeps a codeword's posteriors and check messages in shared memory
 and allocates nothing; the wrapper allocates the outputs only. Its launch
-shape comes from `launch_config` (plain Python, no card needed), and the
-addend table from `cuda_layered.addend_descriptors`, as for the layered
-min-sum kernel; the C side checks both against the code.
+shape comes from `launch_config` (plain Python, no card needed, on the
+limits of `card`), and its device tables from `kernel_tables`: the layered
+min-sum kernel's addends (`cuda_layered.addend_descriptors`) and layer
+offsets; the C side checks both against the code.
 """
 
 from __future__ import annotations
@@ -21,20 +22,20 @@ from __future__ import annotations
 import ctypes
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from ..codes.expand import qc_structure
 from ..codes.params import LDPCCode, get_code
 from ..device import resolve_device
+from . import card, cuda_layered
 from ._nvcc import load_library
-from .cuda_layered import (CTA_RESERVED_BYTES, CTA_SHARED_MAX, MAX_CTAS_PER_SM, SM_SHARED_BYTES,
-                           _kernel_tables, _shape)
+from .cuda_layered import _kernel_tables, _shape
 from .minsum import MSResult
-from .routing import route_for
 from .sumproduct import check_sp_llrs, layered_sp_plain
 
-__all__ = ["make_sp_decoder_cuda", "layered_sp", "launch_config", "card_ctas_per_sm",
-           "ctas_per_sm", "INSTANCES", "SOURCE"]
+__all__ = ["make_sp_decoder_cuda", "layered_sp", "kernel_tables", "launch_config",
+           "card_ctas_per_sm", "INSTANCES", "SOURCE"]
 
 SOURCE = "sumproduct.cu"
 
@@ -42,16 +43,6 @@ SOURCE = "sumproduct.cu"
 # where a layer has more checks than a CTA threads (TM8192, and TM2048 with
 # it), else one, which runs the most threads an SM
 INSTANCES = {6: 2, 8: 1, 10: 1, 18: 1}
-
-# H100 (sm_90) limits the occupancy calculator applies besides shared memory:
-# an SM's registers come in four sub-partitions, a warp takes whole units of
-# 256 registers from one of them
-SUB_PARTITION_REGISTERS = 16_384
-SUB_PARTITIONS = 4
-REGISTER_UNIT = 256
-MAX_WARPS_PER_SM = 64
-# the kernel's register budget, __launch_bounds__(1024): 64 a thread
-REGISTERS_PER_THREAD = 64
 
 # kernel launches since import; read and reset as `cuda_sp.launches`
 launches = 0
@@ -68,17 +59,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def launch_config(code: LDPCCode | str, registers: int = REGISTERS_PER_THREAD) -> dict:
+def launch_config(code: LDPCCode | str, registers: int = card.REGISTERS_PER_THREAD) -> dict:
     """The kernel's launch shape for `code` on an H100: threads and checks a
     thread per CTA (one CTA per codeword, one owner thread per check), its
     dynamic shared bytes, and the CTAs that fit on one SM when a thread takes
-    `registers` registers (the kernel's budget by default; ptxas's count of
-    the instance gives the card's).
+    `registers` registers (the kernel's budget, __launch_bounds__(1024), by
+    default; ptxas's count of the instance gives the card's), by
+    `card.ctas_per_sm`.
 
     Shared bytes: the posteriors (Cc*M floats) and every edge's u (sumA*M
-    floats); the layer's phi values live in the owners' registers. The CTAs
-    an SM holds are the fewest that shared memory, registers, 64 warps and
-    32 CTAs allow."""
+    floats); the layer's phi values live in the owners' registers."""
     code = get_code(code)
     M, _, Cc, sumA, row_max = _shape(code)
     if row_max not in INSTANCES:
@@ -86,21 +76,16 @@ def launch_config(code: LDPCCode | str, registers: int = REGISTERS_PER_THREAD) -
     checks = INSTANCES[row_max]
     threads = max(32, M // checks)  # below 32 checks: one warp, lanes past M idle
     smem = (Cc + sumA) * M * 4
-    if smem > CTA_SHARED_MAX:
-        raise ValueError(f"{code} needs {smem} B of shared memory, over {CTA_SHARED_MAX}")
+    card.fit_shared(code, smem)
     return dict(threads=threads, checks_per_thread=checks, smem_bytes=smem,
-                ctas_per_sm=ctas_per_sm(smem, threads, registers))
+                ctas_per_sm=card.ctas_per_sm(smem, threads, registers))
 
 
-def ctas_per_sm(smem: int, threads: int, registers: int) -> int:
-    """The CTAs of `threads` threads, `smem` dynamic shared bytes and
-    `registers` registers a thread that fit on one H100 SM: the fewest that
-    shared memory, the register file, 64 warps and 32 CTAs allow."""
-    warps = threads // 32
-    per_warp = -(-registers * 32 // REGISTER_UNIT) * REGISTER_UNIT
-    reg_warps = SUB_PARTITION_REGISTERS // per_warp * SUB_PARTITIONS
-    return min(MAX_CTAS_PER_SM, SM_SHARED_BYTES // (smem + CTA_RESERVED_BYTES),
-               MAX_WARPS_PER_SM // warps, reg_warps // warps)
+def kernel_tables(code: LDPCCode) -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's device tables, built on the host: the layered min-sum
+    kernel's packed addends and (R+1,) layer offsets, which it shares on the
+    device (`cuda_layered.kernel_tables`)."""
+    return cuda_layered.kernel_tables(code)[:2]
 
 
 def card_ctas_per_sm(code: LDPCCode | str) -> int:
@@ -127,7 +112,7 @@ def _launch(code: LDPCCode, llrs: torch.Tensor, maxiters: int) -> MSResult:
     iterations = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return MSResult(success, iterations, bits)
-    desc, off = _kernel_tables(code, dev)
+    desc, off, _ = _kernel_tables(code, dev)
     cfg = launch_config(code)
     with torch.cuda.device(dev):
         err = _lib().sumproduct_f32(
@@ -162,7 +147,7 @@ def make_sp_decoder_cuda(code: LDPCCode | str, maxiters: int = 100, device="cuda
     `make_sp_decoder_layered`.
     """
     code = get_code(code)
-    route_for(code)  # an unrouted code fails here, before any launch
+    launch_config(code)  # a code the kernel cannot take fails here, before any launch
     dev = resolve_device(device)
 
     def decode(llrs) -> MSResult:

@@ -1,9 +1,10 @@
-"""The H100 launch table: every kernel's launch shape, pinned per code.
+"""The H100 launch table: every kernel's launch shape for a code.
 
 PyTorch counterpart of `labrador_ldpc_tpu/ops/routing.py`. There each row is
 a TPU measurement (a layout, a batch tile, a lane-parts flag); none of that
-carries over. Here a row holds, for each of the four CUDA kernels, the
-launch shape its wrapper's `launch_config` computes for the code on an H100:
+carries over. Here a code's route holds, for each of the four CUDA kernels,
+the launch shape its wrapper's `launch_config` computes from the code and
+the H100's limits (`card`):
 
   * the layered min-sum kernel (`cuda_layered`, B1/B2) and the flooding
     min-sum kernel (`cuda_qc`, B3/B4), per dtype form (f32, bf16, i8, i16):
@@ -13,13 +14,11 @@ launch shape its wrapper's `launch_config` computes for the code on an H100:
   * the bit-flip kernel (`cuda_bf`, B5/B6): threads a CTA, lanes a codeword,
     codewords a CTA and dynamic shared bytes.
 
-The `launch_config` functions stay the one computation; `ROUTES` pins what
-they give, and `tests/test_torch_sizes.py` holds the two equal. A code
-without a row fails loudly in `route_for`, and every decoder factory of a
-kernel calls it when it is built, so a new code or an edited prototype fails
-before any launch instead of running a shape nobody checked on the card.
+`tests/test_torch_sizes.py` pins every code's route, so a change of any
+shape fails there until its expected row is updated; `chip_smoke.py` phase
+15 checks the routes on the card.
 
-CTAs per SM are not in the table: they depend on the registers ptxas gives
+CTAs per SM are not in the route: they depend on the registers ptxas gives
 each instance. `sizes.decoder_memory` reports them at the kernels' register
 budget, and `chip_smoke.py` holds them to the card's occupancy calculator
 at ptxas's registers.
@@ -28,11 +27,14 @@ at ptxas's registers.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import NamedTuple
 
 from ..codes.params import LDPCCode, get_code
+from . import cuda_bf, cuda_layered, cuda_qc, cuda_sp
+from .cuda_layered import FORMS
 
-__all__ = ["Check", "Forms", "Lanes", "KernelRoute", "ROUTES", "route_for"]
+__all__ = ["Check", "Forms", "Lanes", "KernelRoute", "route_for"]
 
 
 class Check(NamedTuple):
@@ -74,85 +76,22 @@ class KernelRoute:
     bitflip: Lanes
 
 
-ROUTES: dict[str, KernelRoute] = {
-    "TC128": KernelRoute(
-        layered=Forms(Check(32, 1, 3112), Check(32, 1, 1576), Check(32, 1, 1192),
-                      Check(32, 1, 1832)),
-        flooding=Forms(Check(32, 1, 2048), Check(32, 1, 1536), Check(32, 1, 1280),
-                       Check(32, 1, 1536)),
-        sumproduct=Check(32, 1, 2560),
-        bitflip=Lanes(256, 4, 64, 9528)),
-    "TC256": KernelRoute(
-        layered=Forms(Check(32, 1, 6192), Check(32, 1, 3120), Check(32, 1, 2352),
-                      Check(32, 1, 3632)),
-        flooding=Forms(Check(32, 1, 4096), Check(32, 1, 3072), Check(32, 1, 2560),
-                       Check(32, 1, 3072)),
-        sumproduct=Check(32, 1, 5120),
-        bitflip=Lanes(256, 4, 64, 9528)),
-    "TC512": KernelRoute(
-        layered=Forms(Check(32, 2, 12384), Check(32, 2, 6240), Check(32, 2, 4704),
-                      Check(32, 2, 7264)),
-        flooding=Forms(Check(64, 1, 8192), Check(64, 1, 6144), Check(64, 1, 5120),
-                       Check(64, 1, 6144)),
-        sumproduct=Check(64, 1, 10240),
-        bitflip=Lanes(256, 8, 32, 9784)),
-    "TM1280": KernelRoute(
-        layered=Forms(Check(128, 1, 28896), Check(64, 2, 14560), Check(32, 4, 11616),
-                      Check(64, 2, 17376)),
-        flooding=Forms(Check(128, 1, 21248), Check(128, 1, 15616), Check(128, 1, 12800),
-                       Check(128, 1, 15616)),
-        sumproduct=Check(128, 1, 25600),
-        bitflip=Lanes(256, 16, 16, 13344)),
-    "TM1536": KernelRoute(
-        layered=Forms(Check(128, 2, 37184), Check(64, 4, 18752), Check(64, 4, 14912),
-                      Check(64, 4, 22336)),
-        flooding=Forms(Check(256, 1, 26112), Check(256, 1, 18944), Check(256, 1, 15360),
-                       Check(256, 1, 18944)),
-        sumproduct=Check(256, 1, 30720),
-        bitflip=Lanes(256, 32, 8, 9456)),
-    "TM2048": KernelRoute(
-        layered=Forms(Check(256, 2, 53760), Check(128, 4, 27136), Check(128, 4, 21504),
-                      Check(128, 4, 32256)),
-        flooding=Forms(Check(256, 2, 35840), Check(256, 2, 25600), Check(256, 2, 20480),
-                       Check(256, 2, 25600)),
-        sumproduct=Check(256, 2, 40960),
-        bitflip=Lanes(256, 32, 8, 13736)),
-    "TM5120": KernelRoute(
-        layered=Forms(Check(512, 1, 115584), Check(256, 2, 58240), Check(256, 2, 46464),
-                      Check(256, 2, 69504)),
-        flooding=Forms(Check(512, 1, 84992), Check(512, 1, 62464), Check(512, 1, 51200),
-                       Check(512, 1, 62464)),
-        sumproduct=Check(512, 1, 102400),
-        bitflip=Lanes(256, 32, 8, 29120)),
-    "TM6144": KernelRoute(
-        layered=Forms(Check(1024, 1, 148736), Check(256, 4, 75008), Check(256, 4, 59648),
-                      Check(512, 2, 89344)),
-        flooding=Forms(Check(1024, 1, 104448), Check(1024, 1, 75776), Check(1024, 1, 61440),
-                       Check(1024, 1, 75776)),
-        sumproduct=Check(1024, 1, 122880),
-        bitflip=Lanes(256, 32, 8, 37680)),
-    "TM8192": KernelRoute(
-        layered=Forms(Check(1024, 2, 215040), Check(512, 4, 108544), Check(512, 4, 86016),
-                      Check(1024, 2, 129024)),
-        flooding=Forms(Check(1024, 2, 143360), Check(1024, 2, 102400), Check(1024, 2, 81920),
-                       Check(1024, 2, 102400)),
-        sumproduct=Check(1024, 2, 163840),
-        bitflip=Lanes(256, 32, 8, 54824)),
-}
+def _check(cfg: dict) -> Check:
+    return Check(cfg["threads"], cfg["checks_per_thread"], cfg["smem_bytes"])
 
 
+@lru_cache(maxsize=None)
 def route_for(code: LDPCCode | str) -> KernelRoute:
-    """The pinned launch shapes of `code`. Fails loudly for a code without a
-    row: compute its shapes with the four `launch_config` functions, check
-    them on the card (`chip_smoke.py` phases 7, 8, 11, 12 and 15), and pin
-    them in `ROUTES`; a route is never borrowed from another code."""
-    name = get_code(code).value
-    try:
-        return ROUTES[name]
-    except KeyError:
-        raise KeyError(
-            f"no H100 launch route for code {name!r}: compute its row with the launch_config "
-            f"of ops/cuda_layered, cuda_qc, cuda_sp and cuda_bf, check it on the card "
-            f"(chip_smoke.py), and pin it in ops/routing.ROUTES; a route is never borrowed "
-            f"from another code"
-        ) from None
+    """The launch shapes of `code`'s four kernels, from their wrappers'
+    `launch_config`, computed once per argument. Raises the ValueError of a
+    kernel that cannot take the code."""
+    code = get_code(code)
+
+    def forms(mod) -> Forms:
+        return Forms(**{form: _check(mod.launch_config(code, dt)) for dt, form in FORMS.items()})
+
+    bf = cuda_bf.launch_config(code)
+    return KernelRoute(
+        layered=forms(cuda_layered), flooding=forms(cuda_qc),
+        sumproduct=_check(cuda_sp.launch_config(code)),
+        bitflip=Lanes(bf["threads"], bf["lanes"], bf["codewords_per_cta"], bf["smem_bytes"]))

@@ -8,16 +8,17 @@ LLR dtype:
   * the launch shape (`ops/routing.route_for`, the kernels' `launch_config`):
     threads a CTA, codewords a CTA, dynamic shared bytes a CTA and a
     codeword;
-  * the CTAs that fit on one SM at a register count (the kernels' budget of
-    64 a thread by default; ptxas's count gives the card's, which
-    `chip_smoke.py` holds to the occupancy calculator), and the codewords
-    resident on one H100 (CTAs an SM x 132 SMs x codewords a CTA);
+  * the CTAs that fit on one SM at a register count (`ops/card.ctas_per_sm`
+    at the kernels' budget of 64 a thread by default; ptxas's count gives
+    the card's, which `chip_smoke.py` holds to the occupancy calculator),
+    and the codewords resident on one H100 (CTAs an SM x 132 SMs x
+    codewords a CTA);
   * the device bytes a codeword moves in one decode: its LLRs (or hard
     bits) in, its bits, success flag and iteration count out. No kernel has
     a device scratch, so this does not depend on the iteration count;
   * the device bytes one decode of `batch` codewords allocates: input,
-    output, the kernel's tables and the bit-flip kernel's one int32
-    codeword counter.
+    output, the kernel's tables (as its wrapper builds them) and the
+    bit-flip kernel's one int32 codeword counter.
 
 The JAX module's scratch-spec functions (`*_scratch_specs`, sizes.py:56-132)
 describe the Pallas kernels' VMEM scratch and have no counterpart: every
@@ -31,9 +32,8 @@ from dataclasses import dataclass
 
 import torch
 
-from .codes.expand import qc_structure
 from .codes.params import ALL_CODES, LDPCCode, get_code
-from .ops import cuda_bf, cuda_layered, cuda_qc, cuda_sp
+from .ops import card, cuda_bf, cuda_layered, cuda_qc, cuda_sp
 from .ops.routing import route_for
 
 __all__ = [
@@ -43,11 +43,9 @@ __all__ = [
     "format_memory_table",
     "format_reference_table",
     "IMPLS",
-    "H100_SMS",
 ]
 
 IMPLS = ("cuda_layered", "cuda_qc", "cuda_sp", "cuda_bf")
-H100_SMS = 132  # SMs of one H100 SXM
 _LLR_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1, torch.int16: 2}
 _OUT_BYTES = 1 + 4  # a codeword's success flag (bool) and iteration count (int32)
 
@@ -72,17 +70,11 @@ class DecoderMemory:
 
 
 def _table_bytes(code: LDPCCode, impl: str) -> int:
-    """Bytes of the kernel's device tables (int32)."""
-    s = qc_structure(code)
-    sum_a = sum(map(len, s.rows))
+    """Bytes of the kernel's device tables, as its wrapper builds them."""
     if impl == "cuda_bf":
-        return 4 * len(cuda_bf.kernel_table(code)[0]) + 4  # and the codeword counter
-    desc_off = 4 * (2 * sum_a + s.n_block_rows + 1)  # two words an addend, the offsets
-    if impl == "cuda_qc":
-        return desc_off + 4 * sum_a  # sweep 1's run words
-    if impl == "cuda_layered":
-        return desc_off + 4 * sum_a * cuda_layered.packed_words(s.m)  # the syndrome's windows
-    return desc_off
+        return cuda_bf.kernel_table(code)[0].nbytes
+    mod = {"cuda_layered": cuda_layered, "cuda_qc": cuda_qc, "cuda_sp": cuda_sp}[impl]
+    return sum(a.nbytes for a in mod.kernel_tables(code))
 
 
 def decoder_memory(
@@ -90,7 +82,7 @@ def decoder_memory(
     impl: str = "cuda_layered",
     dtype: torch.dtype = torch.float32,
     batch: int = 16384,
-    registers: int = cuda_sp.REGISTERS_PER_THREAD,
+    registers: int = card.REGISTERS_PER_THREAD,
 ) -> DecoderMemory:
     """Launch shape and device memory of one CUDA decoder configuration.
 
@@ -113,12 +105,12 @@ def decoder_memory(
         in_bytes, cw_per_cta, own, dtype_name = 4, 1, launch.smem_bytes, "float32"
     elif impl == "cuda_bf":
         launch = route.bitflip
-        table = _table_bytes(code, impl) - 4
         in_bytes, cw_per_cta, dtype_name = 1, launch.codewords_per_cta, "u8-bits"
-        own = (launch.smem_bytes - table) // cw_per_cta
+        own = (launch.smem_bytes - _table_bytes(code, impl)) // cw_per_cta
     else:
         raise ValueError(f"unknown impl {impl!r} ({'|'.join(IMPLS)})")
-    ctas = cuda_sp.ctas_per_sm(launch.smem_bytes, launch.threads, registers)
+    ctas = card.ctas_per_sm(launch.smem_bytes, launch.threads, registers)
+    counter = 4 if impl == "cuda_bf" else 0  # the bit-flip kernel's int32 codeword counter
     p = code.params
     per_cw = p.n * in_bytes + p.n_vars + _OUT_BYTES
     return DecoderMemory(
@@ -131,10 +123,10 @@ def decoder_memory(
         smem_bytes_per_cw=own,
         registers=registers,
         ctas_per_sm=ctas,
-        resident_codewords=ctas * H100_SMS * cw_per_cta,
+        resident_codewords=ctas * card.H100_SMS * cw_per_cta,
         bytes_per_cw=per_cw,
         batch=batch,
-        alloc_bytes=batch * per_cw + _table_bytes(code, impl),
+        alloc_bytes=batch * per_cw + _table_bytes(code, impl) + counter,
     )
 
 

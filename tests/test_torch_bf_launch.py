@@ -13,7 +13,7 @@ the card; here:
     footprint table below, computed by hand: a codeword's bits Cc*W words,
     W = M/32 or one for M = 16, parities R*W, three count planes 3*Cc*W; the
     table (R+1) + (Cc+1) + 2*sumA*W ints once a CTA; 256 threads; CTAs an SM
-    by `cuda_sp.ctas_per_sm`);
+    by `card.ctas_per_sm`);
   * every addend's forward and inverse window, for all nine codes, against
     `perm_rows` of the unpacked block (TC128's column twice in a word too);
   * one voting addend for each punctured code;

@@ -27,9 +27,8 @@ import torch
 import labrador_ldpc_tpu_torch as T
 from labrador_ldpc_tpu_torch.codes.expand import generator_parity_matrix
 from labrador_ldpc_tpu_torch.ops import cuda_encoder
-from labrador_ldpc_tpu_torch.ops.cuda_layered import CTA_SHARED_MAX
+from labrador_ldpc_tpu_torch.ops.card import CTA_SHARED_MAX, H100_SMS
 from labrador_ldpc_tpu_torch.ops.encoder import encode_bits_plain
-from labrador_ldpc_tpu_torch.sizes import H100_SMS
 from test_torch_layered import one_torch_thread  # noqa: F401  (autouse fixture)
 
 NAMES = [c.value for c in T.ALL_CODES]

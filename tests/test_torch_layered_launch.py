@@ -14,7 +14,8 @@ card; here:
   * `launch_config` against the state layout and an H100's shared memory
     (the footprint table below, computed by hand from the layout), with no
     code and form holding fewer CTAs an SM than the per-edge syndrome's
-    layout did (`BYTE_SIGN_CTAS`);
+    layout did (`BYTE_SIGN_CTAS`), and its CTAs an SM by `card.ctas_per_sm`
+    equal to the kernel's own rule of old;
   * the packed addends (`addend_descriptors`) decoded in numpy against the
     block permutations, and their pass-2 barriers against the rule that two
     addends between barriers never share a block column;
@@ -36,7 +37,7 @@ import torch
 
 import labrador_ldpc_tpu_torch as T
 from labrador_ldpc_tpu_torch.codes.expand import qc_structure
-from labrador_ldpc_tpu_torch.ops import cuda_layered
+from labrador_ldpc_tpu_torch.ops import card, cuda_layered
 from labrador_ldpc_tpu_torch.ops.qc_minsum import layered_minsum_plain
 from test_torch_layered import PARTIAL_EBN0, noisy_llrs, one_torch_thread  # noqa: F401
 
@@ -90,6 +91,13 @@ def test_launch_config(name):
         assert (threads, checks) == (32, 1) if M < 32 else threads * checks == M
         # the CTAs fit the 64 registers a thread of __launch_bounds__(1024)
         assert threads * cfg["ctas_per_sm"] <= 1024
+        # the common occupancy rule at those 64 registers (32 warps an SM) is
+        # the kernel's own of old: the CTAs shared memory allows, at most 32,
+        # within 1,024 threads an SM
+        shared = min(32, 233_472 // (cfg["smem_bytes"] + 1_024))
+        assert card.ctas_per_sm(cfg["smem_bytes"], 32, 64) == shared
+        assert card.ctas_per_sm(cfg["smem_bytes"], threads, 64) == \
+            min(shared, 1024 // threads) == cfg["ctas_per_sm"], (name, form)
     with pytest.raises(ValueError, match="float64"):
         cuda_layered.launch_config(name, torch.float64)
 

@@ -2,11 +2,13 @@
 (sizes.py, `python -m labrador_ldpc_tpu_torch sizes`), the pipelined slope
 (utils/timing.py) and the serving loop (serve.py), on the CPU.
 
-`ROUTES` pins what the four kernels' `launch_config` functions compute, and
-must equal them for every code and dtype form; `route_for` fails loudly for
-a code without a row, and so does every kernel's decoder factory, before any
-launch. The memory rows are pinned by hand for TM8192 and TC128 (the
-layered float32 and bit-flip shared bytes recorded in PERF.md).
+`ROUTES` below pins every launch shape that the four kernels' `launch_config`
+functions compute, for every code and dtype form, and `route_for` must give
+them; a change of a footprint fails here until its row is updated. A code
+a kernel cannot take fails in `route_for`, in every kernel's decoder factory,
+before any launch, and in `decoder_memory`. The memory rows are pinned by
+hand for TM8192 and TC128 (the layered float32 and bit-flip shared bytes
+recorded in PERF.md).
 Tolerance: exact.
 """
 
@@ -22,7 +24,8 @@ from labrador_ldpc_tpu.sizes import format_reference_table as jformat_reference_
 
 import labrador_ldpc_tpu_torch as T
 from labrador_ldpc_tpu_torch import sizes
-from labrador_ldpc_tpu_torch.ops import cuda_bf, cuda_layered, cuda_qc, cuda_sp, routing
+from labrador_ldpc_tpu_torch.ops import card, cuda_bf, cuda_layered, cuda_qc, cuda_sp, routing
+from labrador_ldpc_tpu_torch.ops.routing import Check, Forms, KernelRoute, Lanes
 from labrador_ldpc_tpu_torch.serve import serve
 from labrador_ldpc_tpu_torch.utils.timing import pipelined_slope
 
@@ -38,37 +41,117 @@ def one_torch_thread():
     torch.set_num_threads(prev)
 
 
+# every kernel's launch shape on an H100, per code: threads, checks a thread
+# (lanes and codewords a CTA for the bit-flip kernel) and dynamic shared bytes
+ROUTES = {
+    "TC128": KernelRoute(
+        layered=Forms(Check(32, 1, 3112), Check(32, 1, 1576), Check(32, 1, 1192),
+                      Check(32, 1, 1832)),
+        flooding=Forms(Check(32, 1, 2048), Check(32, 1, 1536), Check(32, 1, 1280),
+                       Check(32, 1, 1536)),
+        sumproduct=Check(32, 1, 2560),
+        bitflip=Lanes(256, 4, 64, 9528)),
+    "TC256": KernelRoute(
+        layered=Forms(Check(32, 1, 6192), Check(32, 1, 3120), Check(32, 1, 2352),
+                      Check(32, 1, 3632)),
+        flooding=Forms(Check(32, 1, 4096), Check(32, 1, 3072), Check(32, 1, 2560),
+                       Check(32, 1, 3072)),
+        sumproduct=Check(32, 1, 5120),
+        bitflip=Lanes(256, 4, 64, 9528)),
+    "TC512": KernelRoute(
+        layered=Forms(Check(32, 2, 12384), Check(32, 2, 6240), Check(32, 2, 4704),
+                      Check(32, 2, 7264)),
+        flooding=Forms(Check(64, 1, 8192), Check(64, 1, 6144), Check(64, 1, 5120),
+                       Check(64, 1, 6144)),
+        sumproduct=Check(64, 1, 10240),
+        bitflip=Lanes(256, 8, 32, 9784)),
+    "TM1280": KernelRoute(
+        layered=Forms(Check(128, 1, 28896), Check(64, 2, 14560), Check(32, 4, 11616),
+                      Check(64, 2, 17376)),
+        flooding=Forms(Check(128, 1, 21248), Check(128, 1, 15616), Check(128, 1, 12800),
+                       Check(128, 1, 15616)),
+        sumproduct=Check(128, 1, 25600),
+        bitflip=Lanes(256, 16, 16, 13344)),
+    "TM1536": KernelRoute(
+        layered=Forms(Check(128, 2, 37184), Check(64, 4, 18752), Check(64, 4, 14912),
+                      Check(64, 4, 22336)),
+        flooding=Forms(Check(256, 1, 26112), Check(256, 1, 18944), Check(256, 1, 15360),
+                       Check(256, 1, 18944)),
+        sumproduct=Check(256, 1, 30720),
+        bitflip=Lanes(256, 32, 8, 9456)),
+    "TM2048": KernelRoute(
+        layered=Forms(Check(256, 2, 53760), Check(128, 4, 27136), Check(128, 4, 21504),
+                      Check(128, 4, 32256)),
+        flooding=Forms(Check(256, 2, 35840), Check(256, 2, 25600), Check(256, 2, 20480),
+                       Check(256, 2, 25600)),
+        sumproduct=Check(256, 2, 40960),
+        bitflip=Lanes(256, 32, 8, 13736)),
+    "TM5120": KernelRoute(
+        layered=Forms(Check(512, 1, 115584), Check(256, 2, 58240), Check(256, 2, 46464),
+                      Check(256, 2, 69504)),
+        flooding=Forms(Check(512, 1, 84992), Check(512, 1, 62464), Check(512, 1, 51200),
+                       Check(512, 1, 62464)),
+        sumproduct=Check(512, 1, 102400),
+        bitflip=Lanes(256, 32, 8, 29120)),
+    "TM6144": KernelRoute(
+        layered=Forms(Check(1024, 1, 148736), Check(256, 4, 75008), Check(256, 4, 59648),
+                      Check(512, 2, 89344)),
+        flooding=Forms(Check(1024, 1, 104448), Check(1024, 1, 75776), Check(1024, 1, 61440),
+                       Check(1024, 1, 75776)),
+        sumproduct=Check(1024, 1, 122880),
+        bitflip=Lanes(256, 32, 8, 37680)),
+    "TM8192": KernelRoute(
+        layered=Forms(Check(1024, 2, 215040), Check(512, 4, 108544), Check(512, 4, 86016),
+                      Check(1024, 2, 129024)),
+        flooding=Forms(Check(1024, 2, 143360), Check(1024, 2, 102400), Check(1024, 2, 81920),
+                       Check(1024, 2, 102400)),
+        sumproduct=Check(1024, 2, 163840),
+        bitflip=Lanes(256, 32, 8, 54824)),
+}
+
+
 def test_every_code_routed():
-    assert list(routing.ROUTES) == [c.value for c in T.ALL_CODES]
+    """Every code has a pinned row, and its route is built once."""
+    assert list(ROUTES) == [c.value for c in T.ALL_CODES]
+    for c in T.ALL_CODES:
+        assert routing.route_for(c) is routing.route_for(c)
 
 
 @pytest.mark.parametrize("name", [c.value for c in T.ALL_CODES])
 def test_routes_equal_launch_config(name):
-    """Each row is what the kernels' launch_config functions compute."""
-    r = routing.route_for(name)
+    """Each kernel's launch_config and route_for give the pinned row."""
+    r = ROUTES[name]
     for dtype, form in cuda_layered.FORMS.items():
         for forms, mod in ((r.layered, cuda_layered), (r.flooding, cuda_qc)):
             cfg = mod.launch_config(name, dtype)
-            want = routing.Check(cfg["threads"], cfg["checks_per_thread"], cfg["smem_bytes"])
-            assert getattr(forms, form) == want, (mod.__name__, form)
+            got = Check(cfg["threads"], cfg["checks_per_thread"], cfg["smem_bytes"])
+            assert got == getattr(forms, form), (mod.__name__, form)
     cfg = cuda_sp.launch_config(name)
-    assert r.sumproduct == routing.Check(cfg["threads"], cfg["checks_per_thread"],
-                                         cfg["smem_bytes"])
+    assert Check(cfg["threads"], cfg["checks_per_thread"], cfg["smem_bytes"]) == r.sumproduct
     cfg = cuda_bf.launch_config(name)
-    assert r.bitflip == routing.Lanes(cfg["threads"], cfg["lanes"], cfg["codewords_per_cta"],
-                                      cfg["smem_bytes"])
+    assert Lanes(cfg["threads"], cfg["lanes"], cfg["codewords_per_cta"],
+                 cfg["smem_bytes"]) == r.bitflip
+    assert routing.route_for(name) == r
 
 
-def test_unrouted_code_fails_loudly(monkeypatch):
-    """A code without a row raises KeyError naming the remedy, in route_for,
-    in every kernel's decoder factory (before anything launches) and in
-    decoder_memory."""
-    monkeypatch.delitem(routing.ROUTES, "TM8192")
-    for build in (routing.route_for, T.make_ms_decoder_cuda_layered, T.make_ms_decoder_cuda_qc,
-                  T.make_sp_decoder_cuda, T.make_bf_decoder_cuda, sizes.decoder_memory):
-        kw = {} if build in (routing.route_for, sizes.decoder_memory) else {"device": "cpu"}
-        with pytest.raises(KeyError, match="never borrowed from another code"):
-            build("TM8192", **kw)
+def test_untakeable_code_fails_before_any_launch(monkeypatch):
+    """With one CTA's shared memory below TM8192's smallest footprint (the
+    bit-flip kernel's), the code fails with the shared-memory ValueError in
+    route_for, in every kernel's decoder factory (before anything launches)
+    and in decoder_memory for every kernel."""
+    kernels = (cuda_layered, cuda_qc, cuda_sp, cuda_bf)
+    launches = [mod.launches for mod in kernels]
+    routing.route_for.cache_clear()
+    monkeypatch.setattr(card, "CTA_SHARED_MAX", ROUTES["TM8192"].bitflip.smem_bytes - 1)
+    builds = [routing.route_for]
+    builds += [lambda c, f=f: f(c, device="cpu") for f in (
+        T.make_ms_decoder_cuda_layered, T.make_ms_decoder_cuda_qc, T.make_sp_decoder_cuda,
+        T.make_bf_decoder_cuda)]
+    builds += [lambda c, i=i: sizes.decoder_memory(c, i) for i in sizes.IMPLS]
+    for build in builds:
+        with pytest.raises(ValueError, match=r"TM8192 needs \d+ B of shared memory, over 54823"):
+            build("TM8192")
+    assert [mod.launches for mod in kernels] == launches
 
 
 @pytest.mark.parametrize("code,impl,dtype,want", [
@@ -98,7 +181,7 @@ def test_decoder_memory_pinned(code, impl, dtype, want):
     if want[-1] is None:
         got, want = got[:-1], want[:-1]
     assert got == want
-    assert r.resident_codewords == r.ctas_per_sm * sizes.H100_SMS * r.codewords_per_cta
+    assert r.resident_codewords == r.ctas_per_sm * card.H100_SMS * r.codewords_per_cta
 
 
 def test_ctas_per_sm_follow_the_registers():
