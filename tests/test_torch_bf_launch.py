@@ -18,7 +18,7 @@ the card; here:
     `perm_rows` of the unpacked block (TC128's column twice in a word too);
   * one voting addend for each punctured code;
   * the packing and unpacking of the hard bits (bit 0 of each byte);
-  * `kernel_replay` (tests/test_torch_bitflip.py), the kernel in numpy,
+  * `kernel_replay` (tests/test_torch_bf_replay.py), the kernel in numpy,
     against `bitflip_plain` bit for bit: bits, success and iterations.
 Tolerance: exact (integer state).
 """
@@ -32,8 +32,8 @@ from labrador_ldpc_tpu_torch.codes.expand import qc_structure
 from labrador_ldpc_tpu_torch.ops import cuda_bf
 from labrador_ldpc_tpu_torch.ops.bitflip import bitflip_plain
 from labrador_ldpc_tpu_torch.ops.qc_minsum import perm_rows
-from test_torch_bitflip import (kernel_replay, pack_replay, received, unpack_replay,
-                                window_replay)
+from test_torch_bf_replay import kernel_replay, pack_replay, unpack_replay, window_replay
+from test_torch_bitflip import received
 from test_torch_layered import one_torch_thread  # noqa: F401  (autouse fixture)
 
 NAMES = [c.value for c in T.ALL_CODES]

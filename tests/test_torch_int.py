@@ -1,13 +1,14 @@
-"""The port's saturating int8/int16 flooding min-sum against the JAX twin and
-the interpreted TPU kernels, on the CPU.
+"""The port's saturating int8/int16 flooding min-sum against the JAX twin, on
+the CPU.
 
 labrador_ldpc_tpu_torch.ops.qc_minsum.flooding_minsum_plain on int LLRs is
 the plain version of the int forms of the flooding CUDA kernel; the TPU
 kernels B3/B4 are pinned bit-exact to labrador_ldpc_tpu.ops.qc_minsum.
 make_ms_decoder_qc_int, and B1/B2 to make_ms_decoder_layered with an int
-dtype. Each batch mixes quantized noisy rows (some fail), clean rows and
-uniform random LLRs over the whole int range, which hit every saturation
-point (tests/test_pallas.py:295). Tolerance: bit-exact in bits, success and
+dtype (the interpreted kernels themselves: tests/test_torch_int_pallas.py).
+Each batch mixes quantized noisy rows (some fail), clean rows and uniform
+random LLRs over the whole int range, which hit every saturation point
+(tests/test_pallas.py:295). Tolerance: bit-exact in bits, success and
 iterations (integer arithmetic).
 """
 
@@ -18,10 +19,6 @@ import torch
 
 from labrador_ldpc_tpu.codes.params import ALL_CODES
 from labrador_ldpc_tpu.ops import qc_minsum as jqc
-from labrador_ldpc_tpu.ops.pallas_qc import (
-    make_ms_decoder_pallas_layered,
-    make_ms_decoder_pallas_qc,
-)
 
 import labrador_ldpc_tpu_torch as T
 from test_torch_layered import (  # noqa: F401  (one_torch_thread: autouse fixture)
@@ -74,23 +71,6 @@ def test_int_flooding_matches_jax_maxiters(name, dt, maxiters):
     assert_same(port, ref)
     if maxiters == 0:
         assert not port.success.any() and not port.bits.any()
-
-
-@pytest.mark.parametrize(
-    "kernel,name",
-    [("B3 flooding", "TM2048"), ("B4 flooding", "TC128"),
-     ("B1 layered", "TM2048"), ("B2 layered", "TC128")],
-)
-def test_int8_matches_pallas_interpret(kernel, name):
-    """The TPU kernels in the Pallas interpreter on int8 LLRs (their f32
-    formulation with clips), against the port's wrappers on the CPU."""
-    llrs = int_llrs(name, torch.int8, seed=11, batch=8, n_clean=1, n_random=2)
-    if kernel.endswith("flooding"):
-        make, port = make_ms_decoder_pallas_qc, T.make_ms_decoder_cuda_qc
-    else:
-        make, port = make_ms_decoder_pallas_layered, T.make_ms_decoder_cuda_layered
-    ref = make(name, jnp.int8, maxiters=12, batch_tile=4, interpret=True)(jnp.asarray(llrs))
-    assert_same(port(name, 12, device="cpu")(torch.from_numpy(llrs)), ref)
 
 
 def test_qc_int_refuses_other_dtypes():
