@@ -33,8 +33,10 @@ trace writer prints the float 2.0 as `2.`, which JSON readers refuse); a
         ldpc.trial_step         one batch enqueued (args batch: its index in the sweep)
           ldpc.draw               data and noise drawn
           ldpc.encode             the encoder's call
-          ldpc.channel            the channel
-          ldpc.decode             the decoder's call
+          ldpc.channel            the channel (with a sum-product impl, also the
+                                  scaling to true LLRs 2y/sigma^2)
+          ldpc.decode             the decoder's call (with sp_layered or cuda_sp on
+                                  the card, the sumproduct_kernel launch)
           ldpc.count              the batch's counters
         ldpc.waterfall.drain    one batch's counters read back to the host
     ldpc.all_reduce         parallel.mesh.all_reduce_sum on a mesh with a process
